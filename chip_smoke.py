@@ -22,15 +22,29 @@ non-zero and prints no result line:
              the same masks, agreeing scores and maps
   tf32       the same maps with score_precision=None (TF32 allowed)
   breakdown  where one map's time goes
+  wb_parity  bench.py's whitebox 4-map mix (mean-EBP, contrastive,
+             truncated-contrastive, weighted-subtree top-32) on the card
+             and on the CPU, same weights: ResNet-101 at full widths with
+             one block per stage, B=2, float32 sweep
+  whitebox   the same mix on full ResNet-101+L2, B=8, bfloat16 sweep: one
+             warm-up mix with every host sync refused during the launches,
+             then 5 timed mixes launched and drained as bench.py does;
+             maps/s, peak memory, each stage's CUDA-event time, the host
+             drain, launch against mix time, and the sweep's launches per
+             probe (one torch.profiler pass) and peak memory
+  wsebp_bf16 one full-depth probe's weighted-subtree map, bfloat16 sweep
+             against float32 sweep
 
 The last lines are the card's name and power limit, the "kernels" line
 and {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -40,6 +54,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 
 N_MASKS, CHUNK, SCALE, ELEMS, SIZE = 6500, 64, 12, 2, 224
+WB_B, WB_TOPK, WB_TIMED = 8, 32, 5  # bench.py's whitebox mix
 
 
 def emit(phase, **rec):
@@ -403,6 +418,331 @@ def phase_breakdown(wb, make, kernel_ms):
          fused_blend_per_map_s=kernel_ms * per_map / 1e3)
 
 
+# ---------------------------------------------------------------------------
+# Whitebox 4-map mix (bench.py:197-263)
+# ---------------------------------------------------------------------------
+
+
+def whitebox_net(device, layers=None, seed=2):
+    """The whitebox matcher: full-depth ResNet-101+L2 from the factory, or
+    one with ``layers`` blocks per stage and the numpy init of ``seed``."""
+    from xfr_torch.ebp.engine import Whitebox, WhiteboxNetwork
+    from xfr_torch.models import common, create_wbnet
+    from xfr_torch.models import resnet101 as R101
+
+    if layers is None:
+        return create_wbnet("resnetv6_pytorch", device=device)
+    graph, shapes, enc = R101.build_resnet101(layers=layers)
+    net = WhiteboxNetwork(
+        graph, common.params_to(common.init_params(shapes, seed=seed), device),
+        encode_tensor=enc, classifier_pname="fc2", num_classes=65359)
+    return Whitebox(net, ebp_version=6, ebp_subtree_mode="norelu")
+
+
+def whitebox_workload(wb, B, seed=0):
+    """bench.py's whitebox inputs on the net's device: two mate and two
+    nonmate images (0..50) whose mean encodings, unit-normed, make the
+    triplet classifiers, and B probes."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    dev = wb.device
+
+    def imgs(n):
+        return torch.as_tensor(rng.rand(n, 3, SIZE, SIZE) * 50,
+                               dtype=torch.float32, device=dev)
+
+    mates, nonmates = imgs(2), imgs(2)
+    em, en = (e / e.norm() for e in (wb.encode(mates).mean(0),
+                                     wb.encode(nonmates).mean(0)))
+    return {"probes": imgs(B), "em": em, "en": en}
+
+
+@contextlib.contextmanager
+def host_syncs_refused(on):
+    """Every operation that would wait for the card raises inside."""
+    import torch
+
+    if not on:
+        yield
+        return
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+@contextlib.contextmanager
+def subtree_mode(wb, mode):
+    """The engine's subtree mode swapped for a block, as
+    launch_weighted_subtree_ebp_batch swaps it for its launch."""
+    prev, wb._ebp_subtree_mode = wb._ebp_subtree_mode, mode
+    try:
+        yield
+    finally:
+        wb._ebp_subtree_mode = prev
+
+
+def launch_mix(wb, w, refuse_syncs=False):
+    """Enqueue the 4-map mix as bench.py does: every method's device work
+    before any host read; the classifier swaps between launches are safe
+    because each launch takes the params it was given."""
+    import torch
+
+    probes, em, en = w["probes"], w["em"], w["en"]
+    B = probes.shape[0]
+    wb.net.reset_classifier()
+    Pn = torch.ones((B, wb.net.num_classes()), device=probes.device)
+    with host_syncs_refused(refuse_syncs):
+        pooled, _ = wb._ebp_pooled_fn()(wb.net.params, probes, Pn)
+    wb.set_triplet_classifier_batch((em / 2500.0).expand(B, -1),
+                                    (en / 2500.0).expand(B, -1))
+    with host_syncs_refused(refuse_syncs):
+        finish_ct = wb.launch_contrastive_ebp_batch_both(probes, 20)
+    wb.set_triplet_classifier_batch(em.expand(B, -1), en.expand(B, -1))
+    with host_syncs_refused(refuse_syncs):
+        finish_ws = wb.launch_weighted_subtree_ebp_batch(
+            probes, topk=WB_TOPK, subtree_mode="norelu")
+    return pooled, finish_ct, finish_ws
+
+
+def drain_mix(wb, launched):
+    """The host side of one mix: {method: [B maps]} plus the selected
+    subtrees of each probe."""
+    pooled, finish_ct, finish_ws = launched
+    pooled = pooled.cpu().numpy()
+    contr, trunc = finish_ct()
+    ws = finish_ws()
+    return {"mean_ebp": [wb._mwp_to_saliency(p) for p in pooled],
+            "contrastive": contr, "truncated_contrastive": trunc,
+            "weighted_subtree": [r[0] for r in ws],
+            "subtrees": [r[3] for r in ws]}
+
+
+def check_wb_maps(out):
+    for name in ("mean_ebp", "contrastive", "truncated_contrastive",
+                 "weighted_subtree"):
+        for m in out[name]:
+            assert m.shape == (112, 112), (name, m.shape)
+            assert np.isfinite(m).all() and m.min() >= 0, name
+            assert abs(float(m.sum(dtype=np.float64)) - 1.0) <= 1e-5, \
+                (name, float(m.sum(dtype=np.float64)))
+
+
+def phase_wb_parity():
+    """The mix on the card and on the CPU with the same weights and the
+    same triplet classifiers (encoded on the CPU): ResNet-101 at full
+    widths, one block per stage, B=2, float32 sweep."""
+    import torch
+
+    wbs = {dev: whitebox_net(dev, layers=(1, 1, 1, 1))
+           for dev in ("cpu", "cuda")}
+    w_cpu = whitebox_workload(wbs["cpu"], 2, seed=1)
+    ws = {"cpu": w_cpu, "cuda": {k: v.cuda() for k, v in w_cpu.items()}}
+    out, secs = {}, {}
+    for dev in ("cuda", "cpu", "cuda"):  # the first card mix warms up
+        t0 = time.time()
+        out[dev] = drain_mix(wbs[dev], launch_mix(wbs[dev], ws[dev]))
+        secs[dev] = time.time() - t0
+    for o in out.values():
+        check_wb_maps(o)
+    rec, ok = {}, True
+    for name in ("mean_ebp", "contrastive", "truncated_contrastive",
+                 "weighted_subtree"):
+        errs = [float(np.abs(a - b).max() / np.abs(b).max())
+                for a, b in zip(out["cuda"][name], out["cpu"][name])]
+        corrs = [float(np.corrcoef(a.ravel(), b.ravel())[0, 1])
+                 for a, b in zip(out["cuda"][name], out["cpu"][name])]
+        rec[name] = {"max_err_rel_to_max": errs, "corr": corrs}
+        if "contrastive" in name:
+            ok &= min(corrs) >= 0.999
+        else:
+            ok &= max(errs) <= 1e-3
+    shared = [len(set(a) & set(b)) for a, b in
+              zip(out["cuda"]["subtrees"], out["cpu"]["subtrees"])]
+    n_sel = [len(b) for b in out["cpu"]["subtrees"]]
+    ok &= all(s >= min(30, n - 2) for s, n in zip(shared, n_sel))
+    # the ranking pass's argmax: ties to the first index on the card too
+    z = torch.zeros((2, 50), device="cuda")
+    z[1, [7, 19]] = 1.0
+    ties = torch.argmax(z, dim=1).tolist()
+    ok &= ties == [0, 7]
+    emit("wb_parity", methods=rec, subtrees_shared=shared,
+         subtrees_selected=n_sel, argmax_ties=ties,
+         cuda_mix_s=secs["cuda"], cpu_mix_s=secs["cpu"],
+         tol={"mean_ebp_and_weighted_subtree_max_err_rel_to_max": 1e-3,
+              "contrastive_corr_min": 0.999,
+              "subtrees_shared_min": "min(30, selected - 2)"})
+    if not ok:
+        raise AssertionError(f"whitebox mix: card and CPU disagree: {rec}, "
+                             f"shared subtrees {shared}, ties {ties}")
+
+
+def stage_event_ms(wb, w):
+    """One mix stage by stage, CUDA events between the stages: stream
+    time, which includes any wait for the host."""
+    import torch
+
+    probes, em, en = w["probes"], w["em"], w["en"]
+    B = probes.shape[0]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    torch.cuda.synchronize()
+    wb.net.reset_classifier()
+    Pn = torch.ones((B, wb.net.num_classes()), device="cuda")
+    ev[0].record()
+    wb._ebp_pooled_fn()(wb.net.params, probes, Pn)
+    ev[1].record()
+    wb.set_triplet_classifier_batch((em / 2500.0).expand(B, -1),
+                                    (en / 2500.0).expand(B, -1))
+    wb._contrastive_both_fn()(wb.net.params, probes,
+                              wb._batch_cotangents(B, "contrastive"), 20.0)
+    ev[2].record()
+    wb.set_triplet_classifier_batch(em.expand(B, -1), en.expand(B, -1))
+    with subtree_mode(wb, "norelu"):
+        scores, idxs, vals = wb._wsebp_grad_batch_fn()(wb.net.params, probes,
+                                                       True)
+        ev[3].record()
+        wb._wsebp_sweep_select_scan_fn(WB_TOPK, False)(
+            wb.net.params, probes, idxs.to(torch.int32), vals, scores)
+        ev[4].record()
+    torch.cuda.synchronize()
+    names = ("mean_ebp", "contrastive_both", "ranking_pass",
+             "sweep_select_merge")
+    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+
+
+def sweep_launches_per_probe(wb, w):
+    """Kernels and ATen operator calls of one B-probe sweep+select+merge,
+    from torch.profiler, per probe; and the sweep's peak memory (the net,
+    the probes and the ranking pass's outputs included)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    probes, em, en = w["probes"], w["em"], w["en"]
+    B = probes.shape[0]
+    wb.set_triplet_classifier_batch(em.expand(B, -1), en.expand(B, -1))
+    with subtree_mode(wb, "norelu"):
+        scores, idxs, vals = wb._wsebp_grad_batch_fn()(wb.net.params, probes,
+                                                       True)
+        sweep = wb._wsebp_sweep_select_scan_fn(WB_TOPK, False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sweep(wb.net.params, probes, idxs.to(torch.int32), vals, scores)
+            torch.cuda.synchronize()
+    kernels = aten = 0
+    busy_us = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            kernels += e.count
+            busy_us += e.self_device_time_total
+        elif e.key.startswith("aten::"):
+            aten += e.count
+    return {"kernels_per_probe": kernels / B, "aten_calls_per_probe":
+            aten / B, "device_busy_ms": busy_us / 1e3,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+
+def phase_whitebox():
+    """bench.py's whitebox mix on full ResNet-101+L2: B=8, bfloat16 sweep,
+    one warm-up mix with host syncs refused during the launches, then
+    WB_TIMED mixes launched and drained double-buffered."""
+    import torch
+    from xfr_torch.blackbox import fused_blend as FB
+
+    t0 = time.time()
+    wb = whitebox_net("cuda")
+    wb.wsebp_dtype = torch.bfloat16
+    w = whitebox_workload(wb, WB_B)
+    k1_before = FB.fused_mask_blend_preprocess.launches
+    out = drain_mix(wb, launch_mix(wb, w, refuse_syncs=True))
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+    check_wb_maps(out)
+
+    torch.cuda.reset_peak_memory_stats()
+    times, launch_s, drain_s = [], [], []
+    t0 = time.time()
+    tl = time.time()
+    prev = launch_mix(wb, w)
+    launch_s.append(time.time() - tl)
+    for _ in range(WB_TIMED - 1):
+        tl = time.time()
+        st = launch_mix(wb, w)
+        launch_s.append(time.time() - tl)
+        td = time.time()
+        check_wb_maps(drain_mix(wb, prev))
+        drain_s.append(time.time() - td)
+        t1 = time.time()
+        times.append(t1 - t0)
+        t0, prev = t1, st
+    td = time.time()
+    check_wb_maps(drain_mix(wb, prev))
+    drain_s.append(time.time() - td)
+    times.append(time.time() - t0)
+    peak = torch.cuda.max_memory_allocated()
+
+    # one mix alone: the launch call against the whole mix
+    torch.cuda.synchronize()
+    t0 = time.time()
+    st = launch_mix(wb, w)
+    one_launch = time.time() - t0
+    drain_mix(wb, st)
+    one_mix = time.time() - t0
+
+    stages = stage_event_ms(wb, w)
+    sweep = sweep_launches_per_probe(wb, w)
+    k1 = FB.fused_mask_blend_preprocess.launches - k1_before
+    wb.net.reset_classifier()
+    # as in bench.py, interval i ends with mix i's drain while mix i+1 is
+    # queued; the intervals add up to the WB_TIMED mixes
+    emit("whitebox", batch=WB_B, maps_per_mix=4 * WB_B, mixes=WB_TIMED,
+         interval_s=times, maps_per_s=4 * WB_B * WB_TIMED / sum(times),
+         warmup_s=warm_s, peak_mem_bytes=peak, launch_s=launch_s,
+         drain_s=drain_s, one_mix={"launch_s": one_launch,
+                                   "mix_s": one_mix},
+         stage_event_ms=stages, sweep=sweep, wsebp_dtype="bfloat16",
+         k1_launches=k1)
+    if k1 != 0:
+        raise AssertionError(f"the whitebox mix launched K1 {k1} times")
+    return wb, w
+
+
+def phase_wsebp_bf16(wb, w):
+    """One full-depth probe's weighted-subtree top-32 map with the sweep in
+    bfloat16 against float32: the ranking pass is float32 in both (equal
+    scores), the selections overlap and the maps correlate > 0.98
+    (tests/test_compute_dtype.py's gate, at full depth)."""
+    import torch
+
+    probe = w["probes"][:1]
+    wb.set_triplet_classifier_batch(w["em"][None], w["en"][None])
+    res = {}
+    for name, dt in (("float32", torch.float32),
+                     ("bfloat16", torch.bfloat16)):
+        wb.wsebp_dtype = dt
+        res[name] = wb.weighted_subtree_ebp_batch(
+            probe, topk=WB_TOPK, subtree_mode="norelu")[0]
+    wb.wsebp_dtype = torch.bfloat16
+    wb.net.reset_classifier()
+    (m32, _, sc32, k32), (m16, _, sc16, k16) = res["float32"], res["bfloat16"]
+    corr = float(np.corrcoef(m32.ravel(), m16.ravel())[0, 1])
+    shared = len(set(k32) & set(k16))
+    scores_equal = bool(np.allclose(sc16, sc32, rtol=1e-6))
+    need = -(-2 * len(k32) // 3)  # the gate's 2 of 3, scaled to topk
+    emit("wsebp_bf16", corr=corr, subtrees_shared=shared,
+         selected_f32=len(k32), selected_bf16=len(k16),
+         ranking_scores_equal=scores_equal,
+         tol={"corr_min": 0.98, "shared_min": need})
+    if not (corr > 0.98 and shared >= need and scores_equal):
+        raise AssertionError(f"bfloat16 sweep: corr {corr}, shared {shared}"
+                             f" of {len(k32)}, scores equal {scores_equal}")
+
+
 def main():
     import torch
 
@@ -412,6 +752,8 @@ def main():
         return 2
     import xfr_torch  # noqa: F401  (fails here outside a checkout)
 
+    # a batched vjp that fell back to a per-row loop would say so
+    warnings.filterwarnings("error", message=".*performance drop.*")
     t_start = time.time()
     smi = phase_device()
     phase_build()
@@ -423,6 +765,10 @@ def main():
     phase_tf32(make, st_k)
     phase_breakdown(wb, make, k1["ms"])
     k1["launches"] = launches
+    del wb, make, st_k
+    phase_wb_parity()
+    wb, w = phase_whitebox()
+    phase_wsebp_bf16(wb, w)
     emit("done", seconds=time.time() - t_start)
     print(smi, flush=True)
     print(json.dumps({"kernels": [k1]}), flush=True)

@@ -92,12 +92,13 @@ def test_toy_every_event_priors_and_truncation_match_jax():
     jr = JI.ebp_backward(g, jparams, jv, jpv, jnp.asarray(zero),
                          priors={ev: jnp.asarray(prior)},
                          start_node=g.event_node[ev], **kw)
-    tr = TI.ebp_backward(tg, tparams, tv, tpv, torch.from_numpy(zero),
+    # the port's walk takes a row axis: one row here
+    tr = TI.ebp_backward(tg, tparams, tv, tpv, torch.from_numpy(zero)[None],
                          priors={ev: torch.from_numpy(prior)},
                          start_node=tg.event_node[ev], **kw)
     assert sorted(jr) == sorted(tr)
     for k in jr:
-        np.testing.assert_allclose(tr[k].numpy(), np.asarray(jr[k]),
+        np.testing.assert_allclose(tr[k][0].numpy(), np.asarray(jr[k]),
                                    rtol=1e-9, atol=1e-12, err_msg=str(k))
 
 

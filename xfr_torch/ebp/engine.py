@@ -1,11 +1,22 @@
-"""Whitebox saliency API (port of the parts of xfr_tpu/ebp/engine.py that
-the STRise path calls).
+"""Whitebox saliency API (port of xfr_tpu/ebp/engine.py).
 
-Ported: ``WhiteboxNetwork``; ``Whitebox.__init__`` without the mesh and
-JIT-cache state, the pooled mean-EBP walk (``_ebp_pooled_fn``), ``ebp``,
+Ported: ``WhiteboxNetwork``; ``Whitebox`` with its compute-dtype knobs,
+the pooled mean-EBP walk (``_ebp_pooled_fn``, ``ebp``, ``ebp_batch``), the
+contrastive family (single probe, batched and the fused both-maps
+launch), the interleaved batch triplet classifier, and the batched
+weighted-subtree path (ranking pass, probe-chunked candidate sweep,
+select+merge, ``launch_weighted_subtree_ebp_batch``); plus
 ``_mwp_to_saliency``, ``encode``, ``embeddings`` and
-``convert_from_numpy``.  The contrastive, layerwise and weighted-subtree
-methods wait for the whitebox slice (ROADMAP queue 1, item 4).
+``convert_from_numpy``.  That is the whitebox 4-map mix of the
+inpainting game.  The layerwise methods, ``subtree_ebp``, the per-probe
+``weighted_subtree_ebp`` and its traced-injection sweep wait for ROADMAP
+queue 1, item 6.
+
+The JAX package jits each program; here each ``_*_fn`` method returns a
+plain function that enqueues its work on the current stream.  No launch
+path reads a device value on the host before its ``finish()``.  Every
+float32 EBP program runs with TF32 off (``precision_scope("high")``, the
+TPU's bf16_3x); ``encode`` allows TF32.
 """
 
 from __future__ import annotations
@@ -18,6 +29,95 @@ import torch
 from xfr_torch.ebp import interpreter as I
 from xfr_torch.graph import GraphDef
 from xfr_torch.utils.device import precision_scope
+
+
+def _percentile_mass_mask(mwp, percentile, batch_dims=0):
+    """Binary mask keeping the top-(100-percentile)% of MWP *mass*.
+
+    The reference sorts ascending, cumsums, and keeps elements whose
+    cumulative mass reaches percentile% of the total.  Equivalent
+    threshold form: the cutoff is the smallest element value t with
+    sum(mwp[mwp <= t]) >= percentile% of the total; keep everything >= t
+    (the same up to float summation order at the boundary).
+
+    Found by a 32-step bisection on the value's BIT pattern (non-negative
+    float32 values order like their int32 bits) instead of a sort, with
+    no host read inside the loop.  The first ``batch_dims`` dims are
+    independent planes (the JAX package vmaps this function over them).
+    """
+    lead = tuple(mwp.shape[:batch_dims])
+    flat = mwp.reshape(lead + (-1,)).float()  # MWP mass is non-negative
+    total = flat.sum(-1, keepdim=True)
+    target = (percentile / 100.0) * total
+    hi = flat.amax(-1, keepdim=True).view(torch.int32)
+    lo = torch.full_like(hi, -1)
+    for _ in range(32):
+        # invariant: mass(value(lo)) < target <= mass(value(hi))
+        mid = lo + (hi - lo) // 2  # (lo+hi)//2 overflows int32 bit space
+        v = torch.clamp(mid, min=0).view(torch.float32)
+        mass = torch.where(flat <= v, flat, 0.0).sum(-1, keepdim=True)
+        ok = (mass >= target) & (mid >= 0)
+        lo = torch.where(ok, lo, mid)
+        hi = torch.where(ok, mid, hi)
+    thresh = hi.view(torch.float32)
+    return (flat >= thresh).to(mwp.dtype).reshape(mwp.shape)
+
+
+def _wsebp_select_merge(P_out, maxes, scores, topk, do_max, eps):
+    """Valid-subtree selection + weighted merge of a candidate sweep.
+
+    Reproduces the reference: candidates in ascending-score order (stable
+    ties), keep the last ``topk`` with map-max > 0 excluding event 1,
+    min-max-normalize the selected scores (all-ones fallback, chosen on
+    the device), normalize each map by its max, merge by weighted sum or
+    max.  Returns (merged [H,W], sel [n_cand] bool)."""
+    n_cand = scores.shape[0]
+    order = torch.argsort(scores, stable=True)
+    valid = (maxes > 0) & (torch.arange(n_cand, device=scores.device) != 1)
+    v_ord = valid[order]
+    # of the valid candidates, keep the last topk in score order
+    rank_from_end = v_ord.flip(0).cumsum(0).flip(0)
+    sel_ord = v_ord & (rank_from_end <= topk)
+    sel = torch.zeros_like(sel_ord).scatter(0, order, sel_ord)
+
+    vmin = torch.where(sel, scores, torch.inf).min()
+    vmax = torch.where(sel, scores, -torch.inf).max()
+    norm = (scores - vmin) / (eps + (vmax - vmin))
+    norm = torch.where(sel, norm, 0.0).float()
+    norm = torch.where(norm.sum() == 0, sel.float(), norm)
+    mapn = P_out * (1.0 / (P_out.amax(dim=(1, 2, 3), keepdim=True) + 1e-12))
+    weighted = norm[:, None, None, None] * mapn * sel[:, None, None, None]
+    merged = weighted.amax(dim=0) if do_max else weighted.sum(dim=0)
+    return merged[0], sel
+
+
+def _interleave_rows(diag):
+    """[B, B] -> ([B, 2B] with diag[i, j] at column 2j, the same at column
+    2j+1): rows that select each probe's mate (even) or nonmate (odd)
+    classifier row, built without an indexed write (which would wait for
+    the card)."""
+    zero = torch.zeros_like(diag)
+    B = diag.shape[0]
+    return (torch.stack([diag, zero], 2).reshape(B, 2 * B),
+            torch.stack([zero, diag], 2).reshape(B, 2 * B))
+
+
+def _contrastive_combine(P, eps, percentile, kinds):
+    """Per-probe contrastive maps from mate/nonmate MWPs P [2,B,C,H,W]:
+    each normalized to unit mass, then relu(mate - nonmate) ("contrastive")
+    and/or the same gated by the mate's percentile-mass mask
+    ("truncated"), pooled over channels -> [B,H,W] each."""
+    mate, nonmate = (q / torch.clamp(q.sum(dim=(1, 2, 3), keepdim=True),
+                                     min=eps) for q in (P[0], P[1]))
+    out = []
+    for kind in kinds:
+        if kind == "contrastive":
+            diff = torch.clamp(mate - nonmate, min=0)
+        else:
+            mask = _percentile_mass_mask(mate, percentile, batch_dims=1)
+            diff = torch.clamp(mask * mate - mask * nonmate, min=0)
+        out.append(diff.sum(dim=1))
+    return out
 
 
 class WhiteboxNetwork(torch.nn.Module):
@@ -112,9 +212,39 @@ class Whitebox:
     """Whitebox EBP saliency engine."""
 
     def __init__(self, net: WhiteboxNetwork, ebp_version=None, with_bias=None,
-                 eps=1e-16, ebp_subtree_mode="affineonly_with_prior"):
+                 eps=1e-16, ebp_subtree_mode="affineonly_with_prior",
+                 compute_dtype=None, wsebp_dtype=None,
+                 contrastive_dtype=None):
+        """compute_dtype: optional torch dtype (e.g. torch.bfloat16) for the
+        EBP compute; MWP outputs are cast back to float32.  The default
+        float32 matches the reference numerics.  Contrastive variants
+        subtract nearly-equal distributions, which amplifies bfloat16
+        rounding.
+
+        wsebp_dtype: compute dtype of the weighted-subtree candidate sweep
+        only (defaults to compute_dtype).  bfloat16 here is the generation
+        CLI's production setting; its maps feed a blur+normalize+merge.
+        float16 is refused: eps (1e-16) underflows to zero in it.
+
+        contrastive_dtype: compute dtype of the contrastive/truncated
+        backward passes only (defaults to compute_dtype).
+
+        The ranking pass of the weighted-subtree path always runs float32.
+        The JAX package's ``wsebp_scan_unroll`` (the unroll of its
+        ``lax.scan`` over probe chunks) has no counterpart: the port walks
+        the chunks in a Python loop."""
         assert isinstance(net, WhiteboxNetwork)
         self.net = net
+        self.compute_dtype = compute_dtype or torch.float32
+        self.wsebp_dtype = wsebp_dtype
+        self.contrastive_dtype = contrastive_dtype
+        # probes per step of the batched sweep: each step's walk ops carry
+        # a [rows, chunk, ...] batch (see _wsebp_scan_local)
+        self.wsebp_probe_chunk = 1
+        # cascaded sweep walk: merge the candidate buckets' walks below
+        # their shared frontiers into one growing-row walk (identical math,
+        # fewer walk ops; see I.ebp_backward_allevents)
+        self.wsebp_cascade = True
         self.eps = float(eps)
         self.ebp_ver = 6 if ebp_version is None else ebp_version
         if self.ebp_ver < 4:
@@ -143,9 +273,40 @@ class Whitebox:
     def _n_events(self):
         return self.net.graph.n_events
 
+    def _prep(self, params, x, dtype=None):
+        """Cast params/input to the compute dtype."""
+        dtype = dtype or self.compute_dtype
+        if dtype == torch.float32:
+            return params, x
+        return ({k: {kk: vv.to(dtype) for kk, vv in v.items()}
+                 for k, v in params.items()}, x.to(dtype))
+
+    @property
+    def _wsebp_dtype(self):
+        dtype = self.wsebp_dtype or self.compute_dtype
+        if torch.finfo(dtype).tiny > self.eps:
+            raise ValueError(
+                f"sweep dtype {dtype}: eps={self.eps} underflows to zero in "
+                "it (float16 cannot carry eps=1e-16); use torch.bfloat16 or "
+                "torch.float32")
+        return dtype
+
+    @property
+    def _contrastive_dtype(self):
+        return self.contrastive_dtype or self.compute_dtype
+
+    def _capture(self, params, x, dtype=None):
+        """Both forward passes in the compute dtype: (params, values,
+        posvals) for the backward walks."""
+        params, x = self._prep(params, x, dtype)
+        values = I.forward_clean(self.net.graph, params, x)
+        posvals = I.forward_positive(self.net.graph, params, values,
+                                     with_bias=self._ebp_with_bias)
+        return params, values, posvals
+
     def _ebp_pooled_fn(self):
         """(params, x, Pn) -> (channel-pooled MWP [B,H,W], MWP [B,C,H,W])
-        at event n_events-2, in full float32 (TF32 off, the TPU's
+        at event n_events-2, float32 out, with TF32 off (the TPU's
         precision "high")."""
         graph = self.net.graph
         mode, wb, eps = self._ebp_subtree_mode, self._ebp_with_bias, self.eps
@@ -153,13 +314,45 @@ class Whitebox:
 
         def fn(params, x, Pn):
             with precision_scope("high"):
-                out = I.ebp(graph, params, x, Pn.to(x.dtype),
-                            subtree_mode=mode, eps=eps, with_bias=wb,
-                            keep=(kk,))
-            P = out[kk].float()
+                params, values, posvals = self._capture(params, x)
+                out = I.ebp_backward(
+                    graph, params, values, posvals,
+                    Pn.to(values[graph.input_id].dtype)[None],
+                    subtree_mode=mode, eps=eps, with_bias=wb, keep=(kk,))
+            P = out[kk][0].float()
             return P.sum(dim=1), P
 
         return fn
+
+    def _contrastive_pair_fn(self, kinds):
+        """(params, x, Pns [2,B,K], percentile) -> list of [B,H,W] maps,
+        one per entry of ``kinds`` ("contrastive", "truncated"): the mate
+        and nonmate walks share one forward-capture pair and run as the
+        two rows of one batched walk (the JAX package's vmap)."""
+        graph = self.net.graph
+        mode, wb, eps = self._ebp_subtree_mode, self._ebp_with_bias, self.eps
+        kk = graph.n_events - 2
+        cdt = self._contrastive_dtype
+
+        def fn(params, x, Pns, percentile):
+            with precision_scope("high"):
+                params, values, posvals = self._capture(params, x, cdt)
+                P = I.ebp_backward(
+                    graph, params, values, posvals,
+                    Pns.to(values[graph.input_id].dtype),
+                    subtree_mode=mode, eps=eps, with_bias=wb,
+                    keep=(kk,))[kk].float()  # [2, B, C, H, W]
+                return _contrastive_combine(P, eps, percentile, kinds)
+
+        return fn
+
+    def _contrastive_fn(self, truncate=False):
+        """Single-probe contrastive / truncated-contrastive combine:
+        (params, x, Pns [2,1,K], percentile) -> [H,W]."""
+        pair = self._contrastive_pair_fn(
+            ("truncated",) if truncate else ("contrastive",))
+        return lambda params, x, Pns, percentile: pair(
+            params, x, Pns, percentile)[0][0]
 
     # ------------------------------------------------------------------
     # Saliency post-processing
@@ -168,6 +361,10 @@ class Whitebox:
     def _float32_to_uint8(self, img):
         return np.uint8(255 * ((img - np.min(img)) /
                                (self.eps + (np.max(img) - np.min(img)))))
+
+    def _scale_normalized(self, img):
+        img = np.float32(img)
+        return (img - np.min(img)) / (self.eps + (np.max(img) - np.min(img)))
 
     def _mwp_to_saliency(self, P, blur_radius=2):
         """Channel-pooled MWP -> saliency map: normalize + gaussian blur.
@@ -217,6 +414,370 @@ class Whitebox:
         self.P = {k: P_full}
         P = np.squeeze(pooled.cpu().numpy()).astype(np.float32)
         return self._mwp_to_saliency(P) if not mwp else P
+
+    def _onehot(self, k):
+        P = torch.zeros((1, self.net.num_classes()), dtype=torch.float32,
+                        device=self.device)
+        P[0, k] = 1.0
+        return P
+
+    def contrastive_ebp(self, img_probe, k_poschannel, k_negchannel):
+        """Contrastive EBP: relu(mwp_mate - mwp_nonmate) at event -2, each
+        normalized to unit mass."""
+        x = self._as_input(img_probe)
+        Pns = torch.stack([self._onehot(k_poschannel),
+                           self._onehot(k_negchannel)])
+        mwp = self._contrastive_fn(truncate=False)(self.net.params, x, Pns,
+                                                    0.0)
+        return self._mwp_to_saliency(mwp.cpu().numpy().astype(np.float32))
+
+    def truncated_contrastive_ebp(self, img_probe, k_poschannel, k_negchannel,
+                                  percentile=20):
+        """Truncated contrastive EBP: a percentile-mass mask on the mate
+        MWP gates the contrastive difference."""
+        x = self._as_input(img_probe)
+        Pns = torch.stack([self._onehot(k_poschannel),
+                           self._onehot(k_negchannel)])
+        mwp = self._contrastive_fn(truncate=True)(self.net.params, x, Pns,
+                                                   float(percentile))
+        return self._mwp_to_saliency(mwp.cpu().numpy().astype(np.float32))
+
+    # ------------------------------------------------------------------
+    # Probe-batched triplet EBP
+    # ------------------------------------------------------------------
+    #
+    # B probes with B different (mate, nonmate) classifiers run as ONE
+    # batch: the per-probe 2-row classifiers interleave into a single
+    # [2B, D] matrix and each probe's cotangent selects only its own two
+    # rows.  Because the classifier is linear, zero cotangent rows
+    # contribute nothing to the backward: per-probe results are exactly
+    # the 2-class runs.
+
+    def set_triplet_classifier_batch(self, x_mates, x_nonmates):
+        """Install an interleaved [2B, D] float32 classifier for B probes.
+        Tensors already on the card are used as they are; numpy arrays are
+        copied there (a copy that waits for the card's queue)."""
+        dev = self.device
+        m = torch.as_tensor(x_mates, dtype=torch.float32, device=dev)
+        n = torch.as_tensor(x_nonmates, dtype=torch.float32, device=dev)
+        B, D = m.shape
+        w = torch.stack([m, n], dim=1).reshape(2 * B, D)
+        self.net.params = dict(self.net.params)
+        self.net.params[self.net.classifier_pname] = {"w": w}
+        self.net._num_classes = 2 * B
+        return B
+
+    def _pad_probe_batch(self, x):
+        """The probe batch as float32 on the card; B must equal the
+        installed batch classifier's width (the JAX package pads only
+        under a device mesh, which the port does not have)."""
+        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        B = x.shape[0]
+        if B != self.net.num_classes() // 2:
+            raise ValueError(
+                "call set_triplet_classifier_batch matching the probe batch "
+                f"(B={B}, classifier for {self.net.num_classes() // 2})")
+        return x, B
+
+    def _batch_cotangents(self, B, kind):
+        """[B, 2B] (or [2, B, 2B]) cotangent rows selecting each probe's
+        own classifier rows, built on the card."""
+        mate, nonmate = _interleave_rows(
+            torch.eye(B, dtype=torch.float32, device=self.device))
+        if kind == "mean":
+            return mate + nonmate
+        return torch.stack([mate, nonmate])
+
+    def ebp_batch(self, x, mwp=False):
+        """Batched meanEBP over the installed batch triplet classifiers:
+        x [B,C,H,W] -> list of B saliency maps."""
+        x, B = self._pad_probe_batch(x)
+        Pn = self._batch_cotangents(B, "mean")
+        pooled, P_full = self._ebp_pooled_fn()(self.net.params, x, Pn)
+        self.P = {self._n_events - 2: P_full}
+        pooled = pooled.cpu().numpy().astype(np.float32)
+        if mwp:
+            return [pooled[i] for i in range(B)]
+        return [self._mwp_to_saliency(pooled[i]) for i in range(B)]
+
+    def _contrastive_batch_fn(self, truncate=False):
+        """Batched contrastive combine with per-sample normalization and
+        truncation: (params, x, Pns [2,B,2B], percentile) -> [B,H,W]."""
+        pair = self._contrastive_pair_fn(
+            ("truncated",) if truncate else ("contrastive",))
+        return lambda params, x, Pns, percentile: pair(
+            params, x, Pns, percentile)[0]
+
+    def contrastive_ebp_batch(self, x, truncate_percent=None):
+        """Batched (truncated-)contrastive EBP over the installed batch
+        classifiers: x [B,C,H,W] -> list of B saliency maps."""
+        x, B = self._pad_probe_batch(x)
+        Pns = self._batch_cotangents(B, "contrastive")
+        mwp = self._contrastive_batch_fn(truncate_percent is not None)(
+            self.net.params, x, Pns, float(truncate_percent or 0.0))
+        mwp = mwp.cpu().numpy().astype(np.float32)
+        return [self._mwp_to_saliency(mwp[i]) for i in range(B)]
+
+    def _contrastive_both_fn(self):
+        """Contrastive AND truncated-contrastive maps from ONE
+        forward-capture pair and one two-row backward walk (the two
+        variants differ only in the final combine): (params, x, Pns,
+        percentile) -> ([B,H,W], [B,H,W])."""
+        return self._contrastive_pair_fn(("contrastive", "truncated"))
+
+    def launch_contrastive_ebp_batch_both(self, x, truncate_percent=20):
+        """Enqueue the batched contrastive+truncated program and return a
+        ``finish()`` closure producing (contrastive maps, truncated maps).
+        Nothing waits for the card before ``finish()``."""
+        x, B = self._pad_probe_batch(x)
+        Pns = self._batch_cotangents(B, "contrastive")
+        contr_dev, trunc_dev = self._contrastive_both_fn()(
+            self.net.params, x, Pns, float(truncate_percent))
+
+        def finish():
+            contr = contr_dev.cpu().numpy().astype(np.float32)
+            trunc = trunc_dev.cpu().numpy().astype(np.float32)
+            return ([self._mwp_to_saliency(contr[i]) for i in range(B)],
+                    [self._mwp_to_saliency(trunc[i]) for i in range(B)])
+
+        return finish
+
+    def contrastive_ebp_batch_both(self, x, truncate_percent=20):
+        """Batched contrastive + truncated-contrastive in one launch:
+        x [B,C,H,W] -> (list of B contrastive maps, list of B truncated
+        maps)."""
+        return self.launch_contrastive_ebp_batch_both(x, truncate_percent)()
+
+    # ------------------------------------------------------------------
+    # Weighted subtree EBP, probe-batched
+    # ------------------------------------------------------------------
+
+    def _wsebp_grad_batch_fn(self):
+        """(params, x, gating) -> per-probe subtree scores, argmaxes and
+        injection values [B, n_events-1] each, for a probe batch under the
+        interleaved [2B, D] triplet classifier: the ranking pass.
+
+        One natural backward walks the mate (or softmax cross-entropy) and
+        nonmate cotangents as two rows; each event's dA pair is reduced to
+        its gated max and first argmax as it fires.  One EBP walk under the
+        mate cotangent then picks P_mate[k] at each event's argmax.  Always
+        float32 with TF32 off, whatever compute_dtype is."""
+        graph = self.net.graph
+        mode, wb, eps = self._ebp_subtree_mode, self._ebp_with_bias, self.eps
+        cand = tuple(range(graph.n_events - 1))
+
+        def fn(params, x, gating):
+            with precision_scope("high"):
+                B = x.shape[0]
+                params, values, posvals = self._capture(params, x,
+                                                        torch.float32)
+                y = values[graph.output_id]  # [B, 2B]
+                eye = torch.eye(B, dtype=y.dtype, device=y.device)
+                cot_m, cot_n = _interleave_rows(eye)
+                if gating:
+                    cots = torch.stack([cot_m, cot_n])
+                else:
+                    # per-probe softmax over each probe's own two logits
+                    pair = torch.diagonal(y.reshape(B, B, 2), 0, 0, 1).T
+                    sm = torch.softmax(pair, dim=-1)
+                    ce_m, _ = _interleave_rows(eye * (sm[:, :1] - 1.0))
+                    _, ce_n = _interleave_rows(eye * sm[:, 1:])
+                    cots = torch.stack([ce_m + ce_n, cot_n])
+
+                def gate(_, dA):
+                    a, b = dA[0], dA[1]
+                    gated = ((a >= 0) * (-b)) if gating else ((a < 0) * (-b))
+                    flat = gated.reshape(B, -1)
+                    # ties (the plane is full of exact zeros) go to the
+                    # first index, as jnp.argmax does
+                    return flat.amax(dim=1), flat.argmax(dim=1)
+
+                ranked = I.natural_backward(graph, params, values, cots,
+                                            keep=cand, reduce=gate)
+                scores = torch.stack([ranked[k][0] for k in cand], 1)
+                idxs = torch.stack([ranked[k][1] for k in cand], 1)
+
+                def pick(k, P):
+                    return P[0].reshape(B, -1).gather(
+                        1, idxs[:, k:k + 1])[:, 0]
+
+                picked = I.ebp_backward(
+                    graph, params, values, posvals, cot_m[None],
+                    subtree_mode=mode, eps=eps, with_bias=wb, keep=cand,
+                    reduce=pick)
+                vals = torch.stack([picked[k] for k in cand], 1)
+            return scores, idxs, vals
+
+        return fn
+
+    def _wsebp_scan_local(self, topk, do_max, n_buckets, chunk):
+        """The batched-sweep body: one forward-capture pair for the whole
+        batch, then a loop over probe chunks (the JAX package's lax.scan)
+        whose step is the bucketed candidate walk on chunk-slices of the
+        captures plus the fused selection/merge.
+
+        Returns local(params, values, posvals, elems, vals, scores) ->
+        (merged [B,H,W], sel [B,n_cand]) for captures already in the sweep
+        compute dtype."""
+        graph = self.net.graph
+        mode, wb, eps = self._ebp_subtree_mode, self._ebp_with_bias, self.eps
+        casc = bool(self.wsebp_cascade)
+
+        def local(params, values, posvals, elems, vals, scores):
+            B = values[graph.input_id].shape[0]
+            dtype = values[graph.input_id].dtype
+            C = chunk if B % chunk == 0 else 1
+            merged, sel = [], []
+            for s in range(0, B, C):
+                vs = [v[s:s + C] for v in values]
+                ps = [v[s:s + C] for v in posvals]
+                if C == 1:
+                    el, va = elems[s], vals[s]
+                else:
+                    el, va = elems[s:s + C].T, vals[s:s + C].T
+                P_out, maxes = I.ebp_backward_allevents(
+                    graph, params, vs, ps, el, va.to(dtype),
+                    subtree_mode=mode, eps=eps, with_bias=wb,
+                    n_buckets=n_buckets, cascade=casc)
+                if C == 1:
+                    maxes = maxes[:, None]
+                for j in range(C):
+                    m, sl = _wsebp_select_merge(P_out[:, j:j + 1],
+                                                maxes[:, j],
+                                                scores[s + j], topk, do_max,
+                                                eps)
+                    merged.append(m)
+                    sel.append(sl)
+            return torch.stack(merged), torch.stack(sel)
+
+        return local
+
+    def _wsebp_sweep_select_scan_fn(self, topk, do_max, n_buckets=12,
+                                    probe_chunk=None):
+        """Fused sweep+selection+merge for a whole probe BATCH: one
+        batch-B forward-capture pair shared by a loop over probe CHUNKS
+        whose body is the probe-batched bucketed candidate walk.
+
+        ``probe_chunk`` > 1 multiplies every walk op's batch by the chunk;
+        it applies when it divides B, else the chunk is 1.
+        (params, x, elems, vals, scores) -> (merged [B,H,W],
+        sel [B,n_cand])."""
+        chunk = int(probe_chunk or self.wsebp_probe_chunk)
+        local = self._wsebp_scan_local(topk, do_max, n_buckets, chunk)
+        sweep_dt = self._wsebp_dtype
+
+        def fn(params, x, elems, vals, scores):
+            with precision_scope("high"):
+                params, values, posvals = self._capture(params, x, sweep_dt)
+                return local(params, values, posvals, elems, vals, scores)
+
+        return fn
+
+    def _wsebp_sweep_select_batch_fn(self, topk, do_max, n_buckets=12):
+        """The same fused sweep as ONE probe-batched walk: every op carries
+        a [rows, B, ...] batch (the scan body with the chunk set to B)."""
+        sweep_dt = self._wsebp_dtype
+
+        def fn(params, x, elems, vals, scores):
+            local = self._wsebp_scan_local(topk, do_max, n_buckets,
+                                           x.shape[0])
+            with precision_scope("high"):
+                params, values, posvals = self._capture(params, x, sweep_dt)
+                return local(params, values, posvals, elems, vals, scores)
+
+        return fn
+
+    def launch_weighted_subtree_ebp_batch(self, x, topk=1, verbose=False,
+                                          do_max_subtree=False,
+                                          do_mated_similarity_gating=True,
+                                          subtree_mode="norelu",
+                                          do_mwp_to_saliency=True):
+        """Enqueue the whole weighted-subtree batch and return a
+        ``finish()`` closure yielding the result list.  The batched
+        ranking pass runs first; its outputs feed the candidate sweep as
+        device tensors (no host round trip between the stages, and no host
+        read before ``finish()``).  The sweeps run as one program sharing a
+        batch-B forward-capture pair."""
+        x_pad, B = self._pad_probe_batch(x)
+        prev_mode = self._ebp_subtree_mode
+        self._ebp_subtree_mode = subtree_mode
+        try:
+            scores_d, idxs_d, vals_d = self._wsebp_grad_batch_fn()(
+                self.net.params, x_pad,
+                gating=bool(do_mated_similarity_gating))
+            merged_d, sel_d = self._wsebp_sweep_select_scan_fn(
+                topk, bool(do_max_subtree))(
+                self.net.params, x_pad, idxs_d.to(torch.int32), vals_d,
+                scores_d)
+        finally:
+            self._ebp_subtree_mode = prev_mode
+
+        def finish():
+            prev = self._ebp_subtree_mode
+            self._ebp_subtree_mode = subtree_mode
+            try:
+                scores = scores_d.cpu().numpy().astype(np.float32)
+                merged = merged_d.cpu().numpy().astype(np.float32)
+                sel = sel_d.cpu().numpy()
+                return [self._wsebp_fused_finish(
+                            merged[i], sel[i], scores[i], verbose,
+                            do_mwp_to_saliency)
+                        for i in range(B)]
+            finally:
+                self._ebp_subtree_mode = prev
+
+        return finish
+
+    def weighted_subtree_ebp_batch(self, x, topk=1, verbose=False,
+                                   do_max_subtree=False,
+                                   do_mated_similarity_gating=True,
+                                   subtree_mode="norelu",
+                                   do_mwp_to_saliency=True,
+                                   return_subtree_maps=False):
+        """Weighted-subtree EBP for a probe batch under the interleaved
+        batch triplet classifier (set_triplet_classifier_batch).  Per-probe
+        results match the 2-class runs of each probe.
+
+        Returns a list of (smap, [], P_subtree_valid, k_subtree_valid)
+        tuples.  ``return_subtree_maps=True`` (the per-probe host path
+        ``_wsebp_post``) is not ported yet."""
+        if return_subtree_maps:
+            raise NotImplementedError(
+                "return_subtree_maps=True goes through the per-probe "
+                "weighted-subtree path, not ported yet: ROADMAP queue 1, "
+                "item 6")
+        return self.launch_weighted_subtree_ebp_batch(
+            x, topk=topk, verbose=verbose, do_max_subtree=do_max_subtree,
+            do_mated_similarity_gating=do_mated_similarity_gating,
+            subtree_mode=subtree_mode,
+            do_mwp_to_saliency=do_mwp_to_saliency)()
+
+    def _wsebp_fused_finish(self, smap, sel, P_subtree, verbose,
+                            do_mwp_to_saliency):
+        """Host side of the fused weighted-subtree path: from the merged
+        map and selection mask (numpy), rebuild the reference's
+        valid-subtree bookkeeping and normalize."""
+        k_order = np.argsort(P_subtree, kind="stable")
+        if verbose:
+            for k in k_order:
+                print("[weighted_subtree_ebp][%d]: layername=%s, "
+                      "grad=%f" % (k, self.P_layername[k], P_subtree[k]))
+        k_subtree_valid = [int(k) for k in k_order if sel[k]]
+        if len(k_subtree_valid) == 0:
+            raise RuntimeError(
+                "Failed to calculate valid subtrees. The ebp subtree "
+                "mode (%s) may not be supported by this type of "
+                "network. You may want to try the "
+                '"affineonly_with_prior" ebp subtree mode.'
+                % self._ebp_subtree_mode)
+        P_subtree_valid = [float(P_subtree[k]) for k in k_subtree_valid]
+        if self.convert_saliency_uint8:
+            smap = self._float32_to_uint8(smap)
+        else:
+            smap = smap / max(smap.sum(), self.eps)
+        return (
+            self._mwp_to_saliency(smap) if do_mwp_to_saliency else smap,
+            [], P_subtree_valid, k_subtree_valid)
 
     # ------------------------------------------------------------------
     # Embeddings

@@ -17,15 +17,23 @@ Two forward passes and one explicit, statically scheduled backward walk:
                       vjps use positive weights; nonlinear vjps linearize
                       at clean values.
 
-Ported: the single walk (``ebp``).  The batched prior-injected sweep
-(``ebp_backward_allevents``), ``natural_backward`` and the traced
-``inject_spec`` one-hot of the weighted-subtree path wait for the
-whitebox slice.
+Ported: the single walk (``ebp``, ``ebp_backward``), ``natural_backward``
+and the batched prior-injected sweep (``ebp_backward_allevents``, bucketed
+and cascaded).  The traced ``inject_spec`` one-hot of the per-probe
+weighted-subtree path waits for ROADMAP item 6.
+
+Eager torch keeps no buffer XLA would have reused or dropped, so the walks
+here (a) free each gradient once its node has consumed it, (b) stop as
+soon as every requested event has fired, and (c) take a cotangent with a
+leading row axis (``jax.vmap`` of the JAX walk over cotangents), walking
+all rows in one batch through ``ops.op_vjp_rows``.  A single walk is one
+row: ``ebp`` adds the axis and strips it again.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+import math
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -144,12 +152,15 @@ def ebp_backward(
     keep: Optional[Sequence[int]] = None,
     priors: Optional[Dict[int, torch.Tensor]] = None,
     start_node: Optional[int] = None,
+    reduce: Optional[Callable[[int, torch.Tensor], torch.Tensor]] = None,
 ) -> Dict[int, torch.Tensor]:
-    """EBP backward walk.  Returns {event_idx: P} for requested events.
+    """EBP backward walk, one per cotangent row.  Returns {event_idx: P}
+    for requested events, each P with the cotangent's leading row axis.
 
     Args:
-      cotangent: gradient seeded at the graph output (the reference's
-        ``Xn.backward(Pn)``).
+      cotangent: [R, *out] gradients seeded at the graph output (the
+        reference's ``Xn.backward(Pn)``); row r is its own walk, as
+        ``jax.vmap`` of the JAX walk over cotangents.
       keep: event indices whose MWP to return (default: all).
       priors: static per-event override tensors (reference self.P_prior).
       start_node: begin the walk at this node index instead of the output
@@ -157,6 +168,9 @@ def ebp_backward(
         everything above contributes zero gradient, so missing grads are
         treated as zeros; the injected event's node must be <= start_node —
         see GraphDef.event_node).
+      reduce: ``reduce(event_idx, P)`` is kept in place of ``P`` when the
+        event fires, so a caller that needs a few elements of each MWP
+        does not hold every event's full tensor.
     """
     _check_mode(graph, subtree_mode)
     priors = priors or {}
@@ -165,6 +179,7 @@ def ebp_backward(
 
     grads = [None] * graph.n_tensors
     grads[graph.output_id] = cotangent
+    rows = cotangent.shape[0]
     out: Dict[int, torch.Tensor] = {}
     truncated = start_node is not None
     first_node = (len(graph.nodes) - 1 if start_node is None
@@ -178,7 +193,7 @@ def ebp_backward(
         if g is None:
             if not truncated:
                 return
-            g = torch.zeros_like(values[t])
+            g = values[t].new_zeros((rows,) + tuple(values[t].shape))
         for (ci, slot, at, xt) in graph.hooks_on(t):
             ev = ev_by_key[(t, ci, slot)]
             a = _relu(values[at])
@@ -186,12 +201,14 @@ def ebp_backward(
             g, p = _apply_event_rule(ev, subtree_mode, g, a, xp, eps,
                                      priors.get(ev.idx))
             if ev.idx in keep_set:
-                out[ev.idx] = p
+                out[ev.idx] = p if reduce is None else reduce(ev.idx, p)
         grads[t] = g
 
     for ni in range(first_node, -1, -1):
         node = graph.nodes[ni]
         _finalize(node.out)
+        if len(out) == len(keep_set):
+            return out  # nothing below reaches a requested event
         g = grads[node.out]
         if g is None:
             continue
@@ -200,7 +217,273 @@ def ebp_backward(
         if node.hooked:
             p = O.positive_params(node.op, p, with_bias=with_bias)
         xs = tuple(values[i] for i in node.ins)
-        contribs = O.op_vjp(node.op, p, xs, node.attrs_dict, g)
+        contribs = O.op_vjp_rows(node.op, p, xs, node.attrs_dict, g)
+        for i, c in zip(node.ins, contribs):
+            grads[i] = c if grads[i] is None else grads[i] + c
+    _finalize(graph.input_id)
+    return out
+
+
+def _positive_node_params(graph, params, with_bias):
+    """Per-node params of an EBP walk, W+ swapped in for hooked nodes once
+    (a walk over many rows or probes reuses them)."""
+    out = []
+    for node in graph.nodes:
+        p = params.get(node.pname, {}) if node.pname else {}
+        out.append(O.positive_params(node.op, p, with_bias=with_bias)
+                   if node.hooked else p)
+    return out
+
+
+def _sweep_event_rule(ev, mode, z, a, xp, eps, inj):
+    """One hook firing of the candidate sweep over [rows, ...] gradients:
+    p = a * relu(z) for every row, the injected one-hot written into row
+    ``inj[0]`` when this event is that row's candidate, and the gradient
+    rewritten per subtree mode (where a prior is present, the injected row
+    follows the prior branch of ``_apply_event_rule``).  Returns (g2, p)."""
+    zh = _relu(z)
+    p = a * zh  # [rows, {1|P}, ...], this event's own tensor
+    r = None
+    if inj is not None:
+        r, onehot = inj
+        p[r] = onehot
+    if mode == "affineonly":
+        return (p / (xp + eps) if ev.is_affine else z), p
+    if mode == "affineonly_with_prior":
+        # the injected row masks p and zh by p > 0
+        if ev.is_affine:
+            g2 = p / (xp + eps)
+            if r is not None:
+                g2[r] = ((p[r] > 0) * p[r]) / (xp + eps)
+        else:
+            g2 = zh
+            if r is not None:
+                g2[r] = (p[r] > 0) * z[r]
+        return g2, p
+    g2 = p / (xp + eps)
+    if mode == "norelu" and ev.is_poolrelu and r is not None:
+        g2[r] = z[r]
+    return g2, p
+
+
+@torch.no_grad()
+def ebp_backward_allevents(
+    graph: GraphDef,
+    params,
+    values,
+    posvals,
+    elems,
+    vals,
+    *,
+    subtree_mode: str,
+    eps: float = 1e-16,
+    with_bias: bool = False,
+    n_buckets: int = 1,
+    cascade: bool = False,
+):
+    """Batched prior-injected backward: one walk row per candidate event.
+
+    The weighted-subtree sweep evaluates a one-hot prior injection at
+    EVERY event 0..n_events-2.  Because candidate k injects exactly at
+    event k, the injection row at each event is static, so the walk is
+    natively batched over candidate rows and event k writes one row.
+
+    ``elems``/``vals`` are [n_events-1] tensors: flat element index and
+    injection value per candidate (row k = event k).  With PROBE-BATCHED
+    captures (``values``/``posvals`` leading dim P > 1) pass
+    [n_events-1, P] tensors: every op then carries a [rows, P, ...] batch
+    and the one-hot indexes each probe's own [C,H,W] plane.
+
+    ``n_buckets`` splits the candidate rows into contiguous event ranges.
+    ``graph.event_node`` is non-increasing in event index, so rows of a
+    bucket share a truncation point: with a zero output cotangent the
+    gradient above the bucket's first node is identically zero and those
+    vjps are skipped.  All buckets share ``values``/``posvals``.
+
+    ``cascade`` (with more than one bucket) merges the buckets' walks
+    below their shared frontiers into ONE full-depth walk whose row batch
+    grows bucket by bucket: identical per-row math (the bucketed walk is
+    its row-sliced restriction), ~(n_buckets+1)/2 x fewer walk ops.  The
+    JAX package's ``row_shard`` (candidate rows over a device mesh) has no
+    counterpart on one card.
+
+    Returns (P_out [n_events-1, {1|P}, H, W], maxes) where P_out is the
+    channel-summed MWP at the saliency plane (event n_events-2) and maxes
+    are per-row map maxima ([n_events-1], or [n_events-1, P] for
+    probe-batched captures) for the validity selection.  The walk stops
+    once the saliency plane's event has fired: nothing below it is read.
+    """
+    _check_mode(graph, subtree_mode)
+    n_cand = graph.n_events - 1
+    kk = graph.n_events - 2
+    batched = elems.ndim == 2
+    node_params = _positive_node_params(graph, params, with_bias)
+
+    ev_by_key = {(e.tensor, e.consumer, e.slot): e for e in graph.events}
+
+    # Contiguous buckets of candidate rows (ascending event index).
+    n_buckets = max(1, min(n_buckets, n_cand))
+    size = -(-n_cand // n_buckets)
+    bucket_ranges = [(lo, min(lo + size, n_cand))
+                     for lo in range(0, n_cand, size)]
+
+    outs = []
+
+    def _onehot(ev, rshape, dtype):
+        """The injected plane of candidate ``ev``: its value at its flat
+        element, per probe when the captures are probe-batched."""
+        if not batched:
+            iota = torch.arange(math.prod(rshape), dtype=elems.dtype,
+                                device=elems.device).reshape(rshape)
+            return torch.where(iota == elems[ev.idx],
+                               vals[ev.idx].to(dtype), 0)
+        npr, per = rshape[0], math.prod(rshape[1:])
+        iota = torch.arange(per, dtype=elems.dtype,
+                            device=elems.device).reshape(rshape[1:])
+        bshape = (npr,) + (1,) * (len(rshape) - 1)
+        return torch.where(iota[None] == elems[ev.idx].reshape(bshape),
+                           vals[ev.idx].to(dtype).reshape(bshape), 0)
+
+    def _make_finalize(grads, bounds):
+        """Hook-event processor for a walk carrying candidate rows
+        ``bounds[0]:bounds[1]`` (a bucket's range, or [0, live) for the
+        cascade, which grows ``bounds`` at bucket frontiers)."""
+
+        def _finalize(t):
+            lo, hi = bounds
+            g = grads[t]
+            for (ci, slot, at, xt) in graph.hooks_on(t):
+                ev = ev_by_key[(t, ci, slot)]
+                if g is None:
+                    # above/at the truncation frontier: gradient is
+                    # identically zero for every live row
+                    if not (lo <= ev.idx < hi):
+                        continue
+                    g = values[t].new_zeros((hi - lo,)
+                                            + tuple(values[t].shape))
+                inj = None
+                if lo <= ev.idx < hi:
+                    inj = (ev.idx - lo,
+                           _onehot(ev, tuple(g.shape[1:]), g.dtype))
+                g2, p = _sweep_event_rule(ev, subtree_mode, g,
+                                          _relu(values[at]),
+                                          _relu(posvals[xt]), eps, inj)
+                if ev.idx == kk:
+                    outs.append(p.sum(dim=2, dtype=torch.float32))
+                g = g2
+            grads[t] = g
+
+        return _finalize
+
+    def _walk_node(ni, grads, fin):
+        """One node of a walk; False once the saliency plane has fired."""
+        node = graph.nodes[ni]
+        fin(node.out)
+        if ni == graph.event_node[kk] and _fired(node.out):
+            return False
+        g = grads[node.out]
+        if g is None:
+            return True
+        grads[node.out] = None  # consumed: nothing reads it again
+        xs = tuple(values[i] for i in node.ins)
+        contribs = O.op_vjp_rows(node.op, node_params[ni], xs,
+                                 node.attrs_dict, g)
+        for i, c in zip(node.ins, contribs):
+            grads[i] = c if grads[i] is None else grads[i] + c
+        return True
+
+    def _fired(t):
+        return any(ev_by_key[(t, ci, slot)].idx == kk
+                   for (ci, slot, _, _) in graph.hooks_on(t))
+
+    if cascade and len(bucket_ranges) > 1:
+        # One full-depth walk whose candidate-row batch GROWS at each
+        # bucket frontier: pad every live gradient with the joining
+        # bucket's zero rows and keep walking.  Rows still join only at
+        # their own bucket's frontier, so the zero-row work is that of the
+        # bucketed walk.
+        joins = {}
+        for lo, hi in bucket_ranges:
+            sn = graph.event_node[lo]
+            joins[sn] = max(joins.get(sn, 0), hi)
+        grads = [None] * graph.n_tensors
+        bounds = [0, 0]  # live candidate-row range, grown at frontiers
+        fin = _make_finalize(grads, bounds)
+        for ni in range(graph.event_node[0], -1, -1):
+            new_hi = joins.get(ni, 0)
+            if new_hi > bounds[1]:
+                for t, g in enumerate(grads):
+                    if g is not None:
+                        grads[t] = torch.cat([g, g.new_zeros(
+                            (new_hi - g.shape[0],) + tuple(g.shape[1:]))])
+                bounds[1] = new_hi
+            if not _walk_node(ni, grads, fin):
+                break
+        else:
+            fin(graph.input_id)
+    else:
+        for lo, hi in bucket_ranges:
+            grads = [None] * graph.n_tensors
+            fin = _make_finalize(grads, [lo, hi])
+            for ni in range(graph.event_node[lo], -1, -1):
+                if not _walk_node(ni, grads, fin):
+                    break
+            else:
+                fin(graph.input_id)
+
+    P_out = torch.cat(outs, dim=0)  # [n_cand, {1|P}, H, W]
+    if batched:  # probe-batched: per-(row, probe) maxima
+        return P_out, P_out.amax(dim=(2, 3))
+    return P_out, P_out.amax(dim=(1, 2, 3))
+
+
+@torch.no_grad()
+def natural_backward(
+    graph: GraphDef,
+    params,
+    values,
+    cotangent,
+    keep: Optional[Sequence[int]] = None,
+    *,
+    reduce: Optional[Callable[[int, torch.Tensor], torch.Tensor]] = None,
+) -> Dict[int, torch.Tensor]:
+    """Plain backward collecting raw per-event gradients.
+
+    This is the reference's 'activation'-mode backward, which records dA
+    at every hooked input in hook-fire order.  Original weights, no
+    gradient rewrite.  Returns {event_idx: dA}; the row-batched
+    ``cotangent`` and ``reduce`` as in ``ebp_backward`` (the ranking pass
+    reduces each dA to its gated max and argmax as it fires, instead of
+    holding every event's gradient).
+    """
+    keep_set = set(range(graph.n_events)) if keep is None else set(
+        k % graph.n_events for k in keep)
+    grads = [None] * graph.n_tensors
+    grads[graph.output_id] = cotangent
+    out: Dict[int, torch.Tensor] = {}
+    ev_by_key = {(e.tensor, e.consumer, e.slot): e for e in graph.events}
+
+    def _finalize(t):
+        g = grads[t]
+        if g is None:
+            return
+        for (ci, slot, at, xt) in graph.hooks_on(t):
+            ev = ev_by_key[(t, ci, slot)]
+            if ev.idx in keep_set:
+                out[ev.idx] = g if reduce is None else reduce(ev.idx, g)
+
+    for ni in range(len(graph.nodes) - 1, -1, -1):
+        node = graph.nodes[ni]
+        _finalize(node.out)
+        if len(out) == len(keep_set):
+            return out  # nothing below reaches a requested event
+        g = grads[node.out]
+        if g is None:
+            continue
+        grads[node.out] = None  # consumed: nothing reads it again
+        p = params.get(node.pname, {}) if node.pname else {}
+        xs = tuple(values[i] for i in node.ins)
+        contribs = O.op_vjp_rows(node.op, p, xs, node.attrs_dict, g)
         for i, c in zip(node.ins, contribs):
             grads[i] = c if grads[i] is None else grads[i] + c
     _finalize(graph.input_id)
@@ -212,7 +495,8 @@ def ebp(graph, params, x, Pn, *, subtree_mode, eps=1e-16, with_bias=False,
     """Full EBP: both forward passes + backward.  Returns {event_idx: P}."""
     values = forward_clean(graph, params, x)
     posvals = forward_positive(graph, params, values, with_bias=with_bias)
-    return ebp_backward(
-        graph, params, values, posvals, Pn,
+    out = ebp_backward(
+        graph, params, values, posvals, Pn[None],
         subtree_mode=subtree_mode, eps=eps, with_bias=with_bias,
         keep=keep, priors=priors)
+    return {k: P[0] for k, P in out.items()}

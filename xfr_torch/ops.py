@@ -15,6 +15,12 @@ Gradients follow the JAX rules, not torch's module defaults:
     like ``jax.vjp(jnp.maximum)`` (``torch.relu`` gives 0);
   * maxpool pads with -inf and routes a tie to the first maximum of its
     window, as JAX's reduce_window does.
+
+``op_vjp_rows`` is the same vjp for a cotangent with a leading row axis
+(``jax.vmap(vjp_fn)``), written out op by op so that no forward is
+recomputed and no row is looped over.  Every backward walk of the port
+goes through it; ``op_vjp`` remains its autograd fallback (l2normalize)
+and the oracle its rules are tested against.
 """
 
 from __future__ import annotations
@@ -231,3 +237,153 @@ def op_vjp(op, params, xs, attrs, cotangent):
         grads = torch.autograd.grad(y, inputs, cotangent, allow_unused=True)
     return tuple(torch.zeros_like(x) if g is None else g
                  for x, g in zip(xs, grads))
+
+
+# ---------------------------------------------------------------------------
+# Row-batched vjp: the counterpart of jax.vmap(vjp_fn)(g)
+# ---------------------------------------------------------------------------
+#
+# The cotangent carries a leading row axis (candidate rows of the
+# weighted-subtree sweep, or the mate/nonmate cotangents of one forward
+# pair) that the captures ``xs`` do not have.  Linear ops fold the rows
+# into the batch axis and never run their forward; relu and maxpool
+# broadcast the clean capture's routing over the rows.  The rules are
+# those of ``op_vjp``: relu passes 0.5 at exactly 0, maxpool routes a tie
+# to the first maximum of its window and accumulates overlapping windows.
+
+
+def _fold(g):
+    """[R, P, ...] -> [R*P, ...]."""
+    return g.reshape((g.shape[0] * g.shape[1],) + tuple(g.shape[2:]))
+
+
+def _rows_conv2d(params, xs, g, *, stride=(1, 1), padding=(0, 0),
+                 dilation=(1, 1)):
+    (x,) = xs
+    gf = _fold(g)
+    gx = torch.nn.grad.conv2d_input(
+        (gf.shape[0],) + tuple(x.shape[1:]), params["w"], gf,
+        _pair(stride), _pair(padding), _pair(dilation))
+    return (gx.reshape((g.shape[0],) + tuple(x.shape)),)
+
+
+def _rows_linear(params, xs, g):
+    return (g @ params["w"],)
+
+
+def _rows_batchnorm2d(params, xs, g, *, eps=1e-5):
+    scale = params["gamma"] / torch.sqrt(params["var"] + eps)
+    return (g * scale[:, None, None],)
+
+
+def _rows_relu(params, xs, g):
+    (x,) = xs
+    slope = (x > 0).to(g.dtype) + 0.5 * (x == 0).to(g.dtype)
+    return (g * slope,)
+
+
+def _unpad(gp, x, kernel, stride, padding, ceil_mode):
+    """Adjoint of ``_pool_pad``: a zero pad's adjoint is the opposite pad
+    (crop where it padded, zeros where it cropped)."""
+    h, w = x.shape[-2:]
+    oh = _pool_out_size(h, kernel[0], stride[0], padding[0], ceil_mode)
+    ow = _pool_out_size(w, kernel[1], stride[1], padding[1], ceil_mode)
+    rh = (oh - 1) * stride[0] + kernel[0] - h - padding[0]
+    rw = (ow - 1) * stride[1] + kernel[1] - w - padding[1]
+    return F.pad(gp, (-padding[1], -rw, -padding[0], -rh))
+
+
+def _rows_maxpool2d(params, xs, g, *, kernel=(2, 2), stride=None,
+                    padding=(0, 0), ceil_mode=False):
+    (x,) = xs
+    kernel, padding = _pair(kernel), _pair(padding)
+    stride = kernel if stride is None else _pair(stride)
+    xp = _pool_pad(x, kernel, stride, padding, ceil_mode, float("-inf"))
+    # the first maximum of each window, as a flat index into its plane
+    _, idx = F.max_pool2d(xp, kernel, stride, return_indices=True)
+    r = g.shape[0]
+    p, c, hp, wp = xp.shape
+    gp = g.new_zeros((r, p * c, hp * wp))
+    # overlapping windows (3x3, stride 2) accumulate into the input
+    gp.scatter_add_(2, idx.reshape(1, p * c, -1).expand(r, -1, -1),
+                    g.reshape(r, p * c, -1))
+    gx = _unpad(gp.reshape(r, p, c, hp, wp), x, kernel, stride, padding,
+                ceil_mode)
+    return (gx,)
+
+
+def _rows_avgpool2d(params, xs, g, *, kernel=(2, 2), stride=None,
+                    padding=(0, 0), ceil_mode=False):
+    (x,) = xs
+    kernel, padding = _pair(kernel), _pair(padding)
+    stride = kernel if stride is None else _pair(stride)
+    gf = _fold(g)
+    ho, wo = g.shape[-2:]
+    # the padded input's shape; its values are never read, so one element
+    # expanded stands in for it
+    shape = (gf.shape[0], x.shape[1], (ho - 1) * stride[0] + kernel[0],
+             (wo - 1) * stride[1] + kernel[1])
+    gp = torch.ops.aten.avg_pool2d_backward(
+        gf, gf.new_empty(1).expand(shape), list(kernel), list(stride),
+        [0, 0], False, True, None)
+    gp = gp.reshape((g.shape[0], x.shape[0]) + tuple(gp.shape[1:]))
+    return (_unpad(gp, x, kernel, stride, padding, ceil_mode),)
+
+
+def _rows_add(params, xs, g):
+    return (g, g)
+
+
+def _rows_multiply_const(params, xs, g, *, c=1.0):
+    return (g * c,)
+
+
+def _rows_concat_zero_channels(params, xs, g, *, mult=1):
+    (x,) = xs
+    return (g[:, :, :x.shape[1]],)
+
+
+def _rows_flatten(params, xs, g):
+    (x,) = xs
+    return (g.reshape((g.shape[0],) + tuple(x.shape)),)
+
+
+def _rows_identity(params, xs, g):
+    return (g,)
+
+
+def _rows_by_autograd(op, params, xs, g, attrs):
+    """Any per-sample op: autograd over the capture repeated for each row,
+    rows folded into the batch axis (one call, no per-row loop)."""
+    r = g.shape[0]
+    rep = tuple(x.unsqueeze(0).expand((r,) + tuple(x.shape)) for x in xs)
+    grads = op_vjp(op, params, tuple(_fold(x) for x in rep), attrs, _fold(g))
+    return tuple(gx.reshape(x.shape) for gx, x in zip(grads, rep))
+
+
+_ROW_VJPS = {
+    "conv2d": _rows_conv2d,
+    "linear": _rows_linear,
+    "batchnorm2d": _rows_batchnorm2d,
+    "relu": _rows_relu,
+    "maxpool2d": _rows_maxpool2d,
+    "avgpool2d": _rows_avgpool2d,
+    "add": _rows_add,
+    "multiply_const": _rows_multiply_const,
+    "concat_zero_channels": _rows_concat_zero_channels,
+    "flatten": _rows_flatten,
+    "identity": _rows_identity,
+}
+
+
+def op_vjp_rows(op, params, xs, attrs, g_rows):
+    """``op_vjp`` for a cotangent with a leading row axis: ``g_rows``
+    [R, *out] at captures ``xs`` without one -> per input [R, *in].
+
+    Row r of the result equals ``op_vjp(op, params, xs, attrs,
+    g_rows[r])``.  l2normalize (a [P, D] head op) goes through autograd
+    with the rows folded into its batch."""
+    rule = _ROW_VJPS.get(op)
+    if rule is None:
+        return _rows_by_autograd(op, params, xs, g_rows, attrs)
+    return rule(params, xs, g_rows, **attrs)
