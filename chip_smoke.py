@@ -34,6 +34,19 @@ non-zero and prints no result line:
              probe (one torch.profiler pass) and peak memory
   wsebp_bf16 one full-depth probe's weighted-subtree map, bfloat16 sweep
              against float32 sweep
+  eval_parity the inpainting game's evaluation core (TwinClsBatch: the
+             blend+encode of every threshold mask, twin classification) on
+             the card and on the CPU, same weights: ResNet-101 at full
+             widths with one block per stage, one probe/twin pair,
+             bench.py's four maps, T cut to 21 percentiles; on the card the
+             multi-map, single-map and host-blend paths must agree
+  eval       bench.py's eval workload (bench.py:117-194) on full
+             ResNet-101+L2: 2 probe/twin pairs, 4 maps, 101 percentiles;
+             one warm-up group with every host sync refused during its
+             launches and flush, then 10 timed groups with one in flight;
+             evals/s, peak memory, launch against group time, host IoU
+             time, steps and rows per group, and one profiled group's
+             device time by kernel group, the blend's share and idle share
 
 The last lines are the card's name and power limit, the "kernels" line
 and {"ok": true, "device": {...}}.
@@ -55,6 +68,9 @@ F32_FLOPS_PER_S = 67e12
 
 N_MASKS, CHUNK, SCALE, ELEMS, SIZE = 6500, 64, 12, 2, 224
 WB_B, WB_TOPK, WB_TIMED = 8, 32, 5  # bench.py's whitebox mix
+# bench.py's eval: 4 maps a probe group, 10 timed groups, 101 percentiles
+EVAL_MAPS, EVAL_GROUPS = 4, 10
+EVAL_PCT = np.unique(np.sort(np.append(np.arange(0, 100, 1), [0, 100])))
 
 
 def emit(phase, **rec):
@@ -743,6 +759,299 @@ def phase_wsebp_bf16(wb, w):
                              f" of {len(k32)}, scores equal {scores_equal}")
 
 
+# ---------------------------------------------------------------------------
+# Inpainting-game evaluation stage (bench.py:117-194)
+# ---------------------------------------------------------------------------
+
+
+def eval_workload(wb, seed=0, percentiles=EVAL_PCT):
+    """bench.py's eval inputs: 2 probe/twin pairs (probe 0..50, twin =
+    probe + 0..30), galleries of 2 noisy copies each (unit-normed mean
+    encodings from ``wb``), 4 saliency maps with the salient box
+    [60:120, 80:150] and the same ground-truth box; percent-density,
+    seed 7, zero elements excluded."""
+    rng = np.random.RandomState(seed)
+    pairs = []
+    for _ in range(2):
+        orig = (rng.rand(3, SIZE, SIZE) * 50).astype(np.float32)
+        inp = orig + (rng.rand(3, SIZE, SIZE) * 30).astype(np.float32)
+        pairs.append((orig, inp))
+
+    def embed(ims):
+        e = wb.embeddings(np.stack(ims))
+        e = e / np.linalg.norm(e, axis=1, keepdims=True)
+        m = e.mean(axis=0, keepdims=True)
+        return m / np.linalg.norm(m, axis=1, keepdims=True)
+
+    gals = [(embed([o + rng.rand(3, SIZE, SIZE).astype(np.float32)
+                    for _ in range(2)]),
+             embed([i + rng.rand(3, SIZE, SIZE).astype(np.float32)
+                    for _ in range(2)]))
+            for o, i in pairs]
+    smaps = []
+    for _ in range(EVAL_MAPS):
+        smap = rng.rand(SIZE, SIZE)
+        smap[60:120, 80:150] += 4.0
+        smaps.append(smap / smap.sum())
+    gt = np.zeros((SIZE, SIZE), bool)
+    gt[60:120, 80:150] = True
+    return {"pairs": pairs, "gals": gals, "smaps": smaps, "gt": gt,
+            "kw": dict(mask_threshold_method="percent-density",
+                       percentiles=percentiles, seed=7,
+                       include_zero_elements=False)}
+
+
+def launch_eval_group(wb, w, p, refuse_syncs=False):
+    """One probe group as bench.py's launch_group: the 4 maps of pair p
+    into one TwinClsBatch, each map's host IoU curve computed after its
+    launch, then the flush that enqueues the one multi-map program.
+    Returns (finishes, IoU curves, host IoU seconds)."""
+    from xfr_torch.inpainting_game import protocol as ipg
+
+    orig, inp = w["pairs"][p % 2]
+    og, ig = w["gals"][p % 2]
+    batch = ipg.TwinClsBatch(wb, orig, inp, og, ig, **w["kw"])
+    fins, ious, iou_s = [], [], 0.0
+    for smap in w["smaps"]:
+        with host_syncs_refused(refuse_syncs):
+            fins.append(batch.launch(smap))
+        t0 = time.time()
+        kw = w["kw"]
+        ious.append(ipg.intersect_over_union_thresholded_saliency(
+            smap, w["gt"], kw["mask_threshold_method"],
+            percentiles=kw["percentiles"], seed=kw["seed"],
+            include_zero_elements=kw["include_zero_elements"]))
+        iou_s += time.time() - t0
+    with host_syncs_refused(refuse_syncs):
+        batch.flush()
+    return fins, ious, iou_s
+
+
+def drain_eval_group(launched):
+    """Finish a group and check it: every classification vector has T
+    entries and a false first entry; distances and IoU curves finite."""
+    fins, ious, _ = launched
+    out = [f() for f in fins]
+    T = len(ious[0])
+    for (cls, pg, pr), iou in zip(out, ious):
+        assert len(cls) == T and not cls[0], (len(cls), cls[:3])
+        assert np.isfinite(pg).all() and np.isfinite(pr).all()
+        assert np.isfinite(iou).all() and len(iou) == T
+    return out
+
+
+@contextlib.contextmanager
+def blend_steps_counted(ranged=False):
+    """Count the blend+encode steps and rows (one call of the engine's
+    ``_threshold_blend`` per step) for a block; with ``ranged`` each call
+    also runs in the profiler range "eval:blend"."""
+    from torch.profiler import record_function
+    from xfr_torch.ebp import engine
+
+    fn = engine._threshold_blend
+    count = {"steps": 0, "rows": 0}
+
+    def counted(counts, t0, T, orig, inp, rows):
+        count["steps"] += 1
+        count["rows"] += rows.shape[0]
+        if not ranged:
+            return fn(counts, t0, T, orig, inp, rows)
+        with record_function("eval:blend"):
+            return fn(counts, t0, T, orig, inp, rows)
+
+    engine._threshold_blend = counted
+    try:
+        yield count
+    finally:
+        engine._threshold_blend = fn
+
+
+def eval_group_profile(wb, w):
+    """One eval group launched and drained under torch.profiler, with the
+    blend in its own range.  Returns (summary, kernel rows): the group's
+    wall time, device busy time (every kernel and copy; one stream),
+    idle share, device time by kernel group and of the blend's kernels,
+    and the (device us, launches, kernel name) rows."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from tools.torch_strise_profile import group_of
+
+    torch.cuda.synchronize()
+    with blend_steps_counted(ranged=True) as count, \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        drain_eval_group(launch_eval_group(wb, w, 0))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    rows, blend = [], None
+    for e in prof.key_averages():
+        if e.key == "eval:blend":
+            # the range's CUDA row is its span on the device's timeline,
+            # not a kernel: only its CPU row's kernel time is kept
+            if e.device_type == DeviceType.CPU:
+                blend = {"ms": e.device_time_total / 1e3, "calls": e.count}
+        elif e.device_type == DeviceType.CUDA and \
+                e.self_device_time_total > 0:
+            rows.append((e.self_device_time_total, e.count, e.key))
+    rows.sort(reverse=True)
+    busy_s = sum(r[0] for r in rows) / 1e6
+    groups = {}
+    for us, n, name in rows:
+        g = groups.setdefault(group_of(name), {"ms": 0.0, "launches": 0})
+        g["ms"] += us / 1e3
+        g["launches"] += n
+    for g in groups.values():
+        g["share_of_busy"] = g["ms"] / 1e3 / busy_s
+    blend["share_of_busy"] = blend["ms"] / 1e3 / busy_s
+    return ({"group_s_profiled": wall, "device_busy_s": busy_s,
+             "idle_share": 1.0 - busy_s / wall,
+             "kernel_launches": sum(r[1] for r in rows),
+             "blend": blend, "steps": count["steps"], "rows": count["rows"],
+             "groups": dict(sorted(groups.items(),
+                                   key=lambda kv: -kv[1]["ms"]))}, rows)
+
+
+class _HostBlendOnly:
+    """A net that shows only ``embeddings``: the protocol's host-blend
+    branch (float64 blends on the host, encoded on the net's device)."""
+
+    def __init__(self, wb):
+        self.embeddings = wb.embeddings
+
+
+def phase_eval_parity():
+    """The eval core on the card and on the CPU with the same weights and
+    the same galleries (encoded on the CPU): ResNet-101 at full widths,
+    one block per stage, one probe/twin pair, bench.py's four maps, T cut
+    to 21 percentiles so each map is one 32-row step.  On the card the
+    multi-map program must equal each map's single-map program and the
+    host-blend branch; card against CPU, the embeddings within 1e-2 of
+    their largest entry (TF32 on the card) and the classifications equal
+    wherever |pg - pr| on the CPU exceeds twice the largest per-row L2 gap
+    of the embeddings (a distance moves by at most that gap)."""
+    from xfr_torch.inpainting_game import protocol as ipg
+
+    pct = np.linspace(0, 100, 21)
+    wbs = {dev: whitebox_net(dev, layers=(1, 1, 1, 1))
+           for dev in ("cpu", "cuda")}
+    w = eval_workload(wbs["cpu"], seed=1, percentiles=pct)
+    orig, inp = w["pairs"][0]
+    og, ig = w["gals"][0]
+
+    def multi(wb):
+        batch = ipg.TwinClsBatch(wb, orig, inp, og, ig, **w["kw"])
+        fins = [batch.launch(s) for s in w["smaps"]]
+        batch.flush()
+        return [f() for f in fins], batch._result
+
+    secs = {}
+    for dev in ("cuda", "cpu", "cuda"):  # the first card run warms up
+        t0 = time.time()
+        res, emb = multi(wbs[dev])
+        secs[dev] = time.time() - t0
+        if dev == "cpu":
+            res_cpu, emb_cpu = res, emb
+    card = wbs["cuda"]
+    same_single, same_host, host_gap = True, True, 0.0
+    for s, r in zip(w["smaps"], res):
+        single = ipg.launch_classified_as_inpainted_twin(
+            card, orig, inp, og, ig, s, **w["kw"])()
+        host = ipg.classified_as_inpainted_twin(
+            _HostBlendOnly(card), orig, inp, og, ig, s, **w["kw"])
+        same_single &= all(np.array_equal(a, b) for a, b in zip(single, r))
+        same_host &= all(np.array_equal(a, b) for a, b in zip(host, r))
+        host_gap = max(host_gap, float(np.abs(host[1] - r[1]).max()),
+                       float(np.abs(host[2] - r[2]).max()))
+    emb_gap = float(np.abs(emb - emb_cpu).max() / np.abs(emb_cpu).max())
+    row_gap = float(np.linalg.norm(emb - emb_cpu, axis=-1).max())
+    below, disagree = 0, 0
+    for (cls, _, _), (cls_c, pg_c, pr_c) in zip(res, res_cpu):
+        sure = np.abs(pg_c - pr_c) > 2 * row_gap
+        below += int((~sure).sum())
+        disagree += int((cls[sure] != cls_c[sure]).sum())
+    flips = [int(np.argmax(c)) if c.any() else None for c, _, _ in res]
+    emit("eval_parity", T=len(pct), T_note="cut from 101 to 21 percentiles "
+         "to keep the CPU side short", layers=[1, 1, 1, 1],
+         multi_equals_single=same_single, multi_equals_host_blend=same_host,
+         host_blend_max_dist_gap=host_gap, emb_max_err_rel_to_max=emb_gap,
+         emb_max_row_l2_gap=row_gap, thresholds_below_margin=below,
+         thresholds_compared=len(res) * len(pct) - below,
+         cls_disagree=disagree, first_flip=flips, cuda_s=secs["cuda"],
+         cpu_s=secs["cpu"],
+         tol={"emb_max_err_rel_to_max": 1e-2,
+              "cls_margin": "2 x emb_max_row_l2_gap"})
+    if not (same_single and same_host and emb_gap <= 1e-2
+            and disagree == 0):
+        raise AssertionError("eval core: card paths or card and CPU "
+                             "disagree")
+
+
+def phase_eval():
+    """bench.py's eval workload on full ResNet-101+L2 (TF32 encode): one
+    warm-up group with every host sync refused during its four launches
+    and its flush, then EVAL_GROUPS timed groups with one group in flight
+    (group p+1 launched, its IoU curves computed, before group p drains);
+    then one group alone, its steps and rows, and one profiled group."""
+    import torch
+    from xfr_torch.blackbox import fused_blend as FB
+
+    t0 = time.time()
+    wb = whitebox_net("cuda")
+    w = eval_workload(wb)
+    k1_before = FB.fused_mask_blend_preprocess.launches
+    drain_eval_group(launch_eval_group(wb, w, 0, refuse_syncs=True))
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+    wb._upload_memo.clear()  # the first timed group pays its upload again
+
+    torch.cuda.reset_peak_memory_stats()
+    times, launch_s, iou_s = [], [], []
+
+    def launch(p):
+        tl = time.time()
+        g = launch_eval_group(wb, w, p)
+        launch_s.append(time.time() - tl)
+        iou_s.append(g[2])
+        return g
+
+    t0 = time.time()
+    pend = launch(0)
+    for p in range(1, EVAL_GROUPS):
+        nxt = launch(p)
+        drain_eval_group(pend)
+        t1 = time.time()
+        times.append(t1 - t0)
+        t0, pend = t1, nxt
+    drain_eval_group(pend)
+    times.append(time.time() - t0)
+    peak = torch.cuda.max_memory_allocated()
+
+    torch.cuda.synchronize()
+    with blend_steps_counted() as count:
+        t0 = time.time()
+        g = launch_eval_group(wb, w, 1)
+        one_launch = time.time() - t0
+        drain_eval_group(g)
+        one_group = time.time() - t0
+    prof, _ = eval_group_profile(wb, w)
+    k1 = FB.fused_mask_blend_preprocess.launches - k1_before
+    T = len(w["kw"]["percentiles"])
+    emit("eval", groups=EVAL_GROUPS, evals_per_group=EVAL_MAPS,
+         interval_s=times, evals_per_s=EVAL_MAPS * EVAL_GROUPS / sum(times),
+         warmup_s=warm_s, peak_mem_bytes=peak, launch_s=launch_s,
+         host_iou_s=iou_s, one_group={"launch_s": one_launch,
+                                      "group_s": one_group},
+         steps_per_group=count["steps"], rows_per_group=count["rows"],
+         rows_used=EVAL_MAPS * T, profile=prof, k1_launches=k1,
+         encode_precision="TF32 allowed")
+    if k1 != 0:
+        raise AssertionError(f"the eval path launched K1 {k1} times")
+    if count["rows"] != count["steps"] * wb.blend_batch:
+        raise AssertionError(f"eval steps {count}")
+
+
 def main():
     import torch
 
@@ -769,6 +1078,9 @@ def main():
     phase_wb_parity()
     wb, w = phase_whitebox()
     phase_wsebp_bf16(wb, w)
+    del wb, w
+    phase_eval_parity()
+    phase_eval()
     emit("done", seconds=time.time() - t_start)
     print(smi, flush=True)
     print(json.dumps({"kernels": [k1]}), flush=True)

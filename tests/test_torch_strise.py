@@ -191,8 +191,14 @@ def test_external_matcher_matches_jax():
     # float32 blends rounded in another order, averaged by bb_fn
     np.testing.assert_allclose(st.mask_scores, jst.mask_scores, rtol=1e-6,
                                atol=1e-7)
-    np.testing.assert_allclose(st.saliency_map, np.asarray(jst.saliency_map),
-                               rtol=1e-5, atol=1e-6)
+    # The map is normalized by its range, so score gaps of about 1e-7 grow
+    # at a pixel: one of 50,176 pixels differs by 1.68e-6 (4.1e-5
+    # relative) on a map whose max is 1.0, measured on the CPU (the
+    # rounding follows the host's float32 kernels).  Held at 1e-5 of the
+    # map's max.
+    want = np.asarray(jst.saliency_map)
+    np.testing.assert_allclose(st.saliency_map, want, rtol=1e-5,
+                               atol=1e-5 * want.max())
     # masked probes and apply_masks_using_image on the host
     fill = np.zeros((224, 224, 3), np.float32)
     out = st.apply_masks_using_image(fill)
@@ -249,11 +255,17 @@ def test_entry_points_refuse_missing_card_and_mesh(nets):
         preprocess_resnet101(np.zeros((8, 8, 3), np.uint8))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_wbnet("lightcnn", device="cpu")
+    from xfr_torch.cli import run_eval
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_eval.main(["--cache-dir", os.devnull, "--net",
+                       "resnetv6_pytorch"])
 
 
 def test_port_imports_no_jax():
     code = ("import sys, xfr_torch.blackbox.strise, xfr_torch.models, "
-            "xfr_torch.kernels, xfr_torch.blackbox.fused_blend; "
+            "xfr_torch.kernels, xfr_torch.blackbox.fused_blend, "
+            "xfr_torch.inpainting_game.analysis, xfr_torch.show, "
+            "xfr_torch.cli.run_eval, xfr_torch.cli.hiding_game; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'xfr_tpu')]; "
             "assert not bad, bad")

@@ -303,7 +303,7 @@ def test_four_map_mix_reduced_resnet101_matches_jax():
     mode) on ResNet-101 at full widths with one block per stage, 16
     classes, B=2, float32 on both sides.  Mean-EBP and weighted-subtree
     maps within 1e-4 of the map's maximum, equal subtree selections and
-    scores at rtol 1e-5; the contrastive maps, differences of two
+    scores at rtol 5e-5; the contrastive maps, differences of two
     near-equal distributions, at correlation >= 0.999."""
     nc, B = 16, 2
     graph, shapes, enc = JR.build_resnet101(num_classes=nc,
@@ -348,7 +348,11 @@ def test_four_map_mix_reduced_resnet101_matches_jax():
         assert np.corrcoef(a.ravel(), b.ravel())[0, 1] >= 0.999
     for (s_t, _, sc_t, k_t), (s_j, _, sc_j, k_j) in zip(tws, jws):
         assert k_t == k_j and len(k_t) >= 30
-        np.testing.assert_allclose(sc_t, sc_j, rtol=1e-5)
+        # float32 scores, each reduced along a reduced-depth walk whose
+        # sums the two frameworks reassociate differently: 2 of 32 differ
+        # by 1.08e-5 relative (2.2e-10 absolute) on one CPU, within 1e-5
+        # on another.  Held at rtol 5e-5.
+        np.testing.assert_allclose(sc_t, sc_j, rtol=5e-5)
         np.testing.assert_allclose(s_t, s_j, atol=1e-4 * s_j.max(), rtol=0)
 
 

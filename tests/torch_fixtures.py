@@ -19,6 +19,20 @@ def jax_params_np(params, dtype=None):
             for k, v in params.items()}
 
 
+def toy_preprocess(im):
+    """tests/fixtures.toy_preprocess on the port: uint8/float HWC RGB ->
+    [1,3,224,224] float32 in [0,1] on the CPU."""
+    from xfr_torch.utils.image import resize
+
+    arr = np.asarray(im, np.float64)
+    if arr.max() > 1.5:
+        arr = arr / 255.0
+    if arr.shape[:2] != (224, 224):
+        arr = resize(arr, (224, 224))
+    return torch.from_numpy(
+        np.ascontiguousarray(arr.transpose(2, 0, 1)[None], np.float32))
+
+
 def toy_graph():
     """The graph of tests/fixtures.make_toy_wbnet, built by the port."""
     g = GraphBuilder("toynet")
@@ -48,7 +62,8 @@ def torch_twin(jax_wb, dtype=None, with_bias=None):
                              device="cpu")
     net = WhiteboxNetwork(graph, params, encode_tensor=enc,
                           classifier_pname="fc2", num_classes=num_classes,
-                          embed_dim=12, name="toynet")
+                          preprocess=toy_preprocess, embed_dim=12,
+                          name="toynet")
     wb = Whitebox(net, ebp_version=6,
                   ebp_subtree_mode=jax_wb.ebp_subtree_mode(),
                   eps=jax_wb.eps, with_bias=with_bias)

@@ -6,17 +6,22 @@ contrastive family (single probe, batched and the fused both-maps
 launch), the interleaved batch triplet classifier, and the batched
 weighted-subtree path (ranking pass, probe-chunked candidate sweep,
 select+merge, ``launch_weighted_subtree_ebp_batch``); plus
-``_mwp_to_saliency``, ``encode``, ``embeddings`` and
-``convert_from_numpy``.  That is the whitebox 4-map mix of the
-inpainting game.  The layerwise methods, ``subtree_ebp``, the per-probe
-``weighted_subtree_ebp`` and its traced-injection sweep wait for ROADMAP
-queue 1, item 6.
+``_mwp_to_saliency``, ``encode``, ``embeddings``, ``convert_from_numpy``
+and ``preprocess_loader``.  That is the whitebox 4-map mix of the
+inpainting game.  The inpainting game's evaluation stage adds the
+blend+encode family: threshold-mask blends of a probe toward its twin,
+built and encoded on the card (bit-packed masks, the monotone enter-count
+plane, several maps of one pair, several pairs).  The layerwise methods,
+``subtree_ebp``, the per-probe ``weighted_subtree_ebp`` and its
+traced-injection sweep wait for ROADMAP queue 1, item 6.
 
 The JAX package jits each program; here each ``_*_fn`` method returns a
-plain function that enqueues its work on the current stream.  No launch
-path reads a device value on the host before its ``finish()``.  Every
-float32 EBP program runs with TF32 off (``precision_scope("high")``, the
-TPU's bf16_3x); ``encode`` allows TF32.
+plain function that enqueues its work on the current stream, and a
+``lax.scan`` becomes a Python loop over its steps.  No launch path reads
+a device value on the host before its ``finish()``.  Every float32 EBP
+program runs with TF32 off (``precision_scope("high")``, the TPU's
+bf16_3x); ``encode`` and the blend+encode programs allow TF32.  The
+device mesh (``use_mesh``) is not ported: one card.
 """
 
 from __future__ import annotations
@@ -89,6 +94,18 @@ def _wsebp_select_merge(P_out, maxes, scores, topk, do_max, eps):
     weighted = norm[:, None, None, None] * mapn * sel[:, None, None, None]
     merged = weighted.amax(dim=0) if do_max else weighted.sum(dim=0)
     return merged[0], sel
+
+
+def _threshold_blend(counts, t0, T, orig, inp, rows):
+    """Rows t0..t0+bs-1 of a monotone threshold-mask family, blended: from
+    the family's enter-count plane ``counts`` [1, H*W] int32, mask row t
+    holds pixel p iff t < T and counts[p] >= T - t, and its blend is
+    (1 - m)·orig + m·inp.  ``rows``: [bs, 1] int32 0..bs-1.  Returns
+    [bs, C, H, W]."""
+    t = rows + t0
+    mk = ((t < T) & (counts >= T - t)).to(orig.dtype)
+    mk = mk.reshape(rows.shape[0], 1, orig.shape[-2], orig.shape[-1])
+    return (1.0 - mk) * orig[None] + mk * inp[None]
 
 
 def _interleave_rows(diag):
@@ -256,6 +273,8 @@ class Whitebox:
             self._ebp_with_bias = self.ebp_ver == 11
         self._ebp_subtree_mode = ebp_subtree_mode
         self.batch_size = 32  # embeddings batching
+        # max rows per step of the mono blend+encode programs
+        self.blend_batch = 32
 
         # Exposed after each EBP call, mirroring reference attributes.
         self.P: Dict[int, torch.Tensor] = {}
@@ -264,6 +283,11 @@ class Whitebox:
         # Calibration constants, set by the factory.
         self.match_threshold = None
         self.platts_scaling = None
+
+        # content-hash -> device tensor memo for repeated image uploads
+        # (the analysis loop re-evaluates the same probe/twin pair for
+        # every method)
+        self._upload_memo = {}
 
     @property
     def device(self):
@@ -791,12 +815,21 @@ class Whitebox:
 
     def embeddings(self, images, norm=True):
         """Batched embeddings from preprocessed [N,C,H,W] tensors/arrays, a
-        list of [C,H,W] ones, or raw HWC images.  Pads the trailing batch
-        to ``batch_size`` so every launch has one shape."""
+        list of [C,H,W] ones, a DataFrame of image rows, or file paths /
+        raw HWC images.  Pads the trailing batch to ``batch_size`` so every
+        launch has one shape."""
+        from xfr_torch.utils.image import (_is_dataframe,
+                                           dataframe_image_loader,
+                                           image_loader)
+
         if isinstance(images, (np.ndarray, torch.Tensor)) and \
                 images.ndim == 4 and images.shape[1] in (1, 3):
             imagesT = torch.as_tensor(images, dtype=torch.float32,
                                       device=self.device)
+        elif _is_dataframe(images):
+            imagesT = torch.cat([
+                self.convert_from_numpy(im)
+                for im in dataframe_image_loader(images)]).to(self.device)
         elif len(images) and isinstance(images[0], (np.ndarray, torch.Tensor)) \
                 and images[0].ndim == 3 and images[0].shape[0] in (1, 3):
             # already in network format
@@ -804,9 +837,10 @@ class Whitebox:
                 torch.as_tensor(im, dtype=torch.float32, device=self.device)
                 for im in images])
         else:
-            # displayable HWC images -> preprocess
-            imagesT = torch.cat([self.convert_from_numpy(im)
-                                 for im in images]).to(self.device)
+            # file paths / displayable HWC images -> loader + preprocess
+            imagesT = torch.cat([
+                self.convert_from_numpy(im)
+                for im in image_loader(list(images))]).to(self.device)
 
         n = imagesT.shape[0]
         bs = self.batch_size
@@ -824,6 +858,200 @@ class Whitebox:
                       ).reshape(embeds.shape)
         return embeds
 
+    # ------------------------------------------------------------------
+    # Threshold-mask blend + encode (the inpainting game's evaluation)
+    # ------------------------------------------------------------------
+    #
+    # Each program blends a probe toward its twin under binary masks and
+    # encodes the blends, with the masks built on the card.  A mask is 0 or
+    # 1, so (1 - m)·orig + m·inp is a per-pixel select: the blends equal
+    # the host float64 blends cast to float32 bit for bit.  The JAX
+    # package's lax.scan over (map, chunk-start) steps is a Python loop
+    # here; each step encodes the same [bs, C, H, W] batch as there,
+    # rows past T included, into one preallocated output.
+
+    def _upload(self, arr):
+        """A host array as a tensor on the net's device.  On the card it
+        goes through pinned memory without waiting (the launch paths never
+        wait for the card); on the CPU it is copied."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.clone()
+
+    def _device_put_memo(self, arr):
+        """Upload a host array once per content: a small content-hash memo
+        returns the live device tensor for repeated uploads."""
+        from xfr_torch.utils.cache import content_key, memo_put
+
+        key = content_key(arr)
+        dev = self._upload_memo.get(key)
+        if dev is None:
+            dev = memo_put(self._upload_memo, key, self._upload(arr))
+        return dev
+
+    def _blend_encode_fn(self):
+        """(params, orig, inp, bits) -> [n, D]: unpack bit-packed threshold
+        masks (np.packbits order, MSB first), blend probe->twin and encode
+        them, TF32 allowed."""
+        graph, enc = self.net.graph, self.net.encode_tensor
+
+        def fn(params, orig, inp, bits):
+            H, W = orig.shape[-2], orig.shape[-1]
+            shifts = torch.arange(7, -1, -1, dtype=torch.uint8,
+                                  device=bits.device)
+            m = (bits[:, :, None] >> shifts) & 1
+            m = m.reshape(bits.shape[0], -1)[:, :H * W]
+            m = m.to(orig.dtype).reshape(bits.shape[0], 1, H, W)
+            blends = (1.0 - m) * orig[None] + m * inp[None]
+            with precision_scope(None):
+                e = I.forward_clean(graph, params, blends, keep=(enc,))[enc]
+            return e.reshape(e.shape[0], -1)
+
+        return fn
+
+    def _blend_encode_mono_multi_local(self, T, bs):
+        """The step loop of every mono program (single map, several maps
+        of one pair, several pairs): for each (map m, chunk start t0,
+        pair p) step, build the [bs, 1, H, W] masks of rows t0..t0+bs-1
+        from map m's enter-count plane (row t contains pixel p iff t < T
+        and counts[p] >= T - t), blend pair p's probe toward its twin,
+        encode, and write the rows into ``out[m, t0:t0+bs]``.
+
+        local(params, origs [P,C,H,W], inps, counts [M, H*W] uint8,
+        steps, n_maps) -> out [n_maps, rows, D], allocated once the
+        first step has given D."""
+        graph, enc = self.net.graph, self.net.encode_tensor
+
+        def local(params, origs, inps, counts, steps, n_maps):
+            c_all = counts.to(torch.int32)
+            rows = torch.arange(bs, dtype=torch.int32,
+                                device=counts.device)[:, None]
+            n_rows = max(t0 for _, t0, _ in steps) + bs
+            out = None
+            for m, t0, p in steps:
+                blends = _threshold_blend(c_all[m][None], t0, T, origs[p],
+                                          inps[p], rows)
+                with precision_scope(None):
+                    e = I.forward_clean(graph, params, blends,
+                                        keep=(enc,))[enc].reshape(bs, -1)
+                if out is None:
+                    out = e.new_empty((n_maps, n_rows, e.shape[1]))
+                out[m, t0:t0 + bs] = e
+            return out
+
+        return local
+
+    def launch_blend_embeddings_counts_multi_pair(
+            self, orig_imTs, inpaint_imTs, counts_mat, pair_idx, T,
+            norm=True):
+        """Batch M monotone mask families spanning P probe/twin image
+        pairs into one blend+encode program.  ``orig_imTs`` /
+        ``inpaint_imTs``: length-P sequences of [C,H,W] images;
+        ``counts_mat``: [M, H*W] uint8 enter-count planes (counts[p] =
+        number of masks containing pixel p; by monotonicity pixel p is in
+        masks T-counts[p]..T-1); ``pair_idx``: [M] indices into the pair
+        stacks.  Map m runs ceil(T/bs) steps of bs rows, bs =
+        min(blend_batch, ceil(T/batch_size)*batch_size); rows past T
+        encode the pure original and are dropped.  ``finish()`` returns
+        [M, T, D] embeddings."""
+        counts_mat = np.ascontiguousarray(counts_mat, np.uint8)
+        pair_idx = np.ascontiguousarray(pair_idx, np.int32)
+        assert T <= 255 and counts_mat.ndim == 2
+        M = counts_mat.shape[0]
+        assert len(inpaint_imTs) == len(orig_imTs) and pair_idx.shape == (M,)
+        bs = self.batch_size
+        origs = torch.stack([self._device_put_memo(
+            np.asarray(o, np.float32)) for o in orig_imTs])
+        inps = torch.stack([self._device_put_memo(
+            np.asarray(i, np.float32)) for i in inpaint_imTs])
+        bs_m = min(self.blend_batch, -(-T // bs) * bs)
+        steps = [(m, t0, int(pair_idx[m])) for m in range(M)
+                 for t0 in range(0, -(-T // bs_m) * bs_m, bs_m)]
+        out = self._blend_encode_mono_multi_local(T, bs_m)(
+            self.net.params, origs, inps, self._upload(counts_mat), steps, M)
+        return self._finish_embeds(out[:, :T], norm)
+
+    @staticmethod
+    def _finish_embeds(out, norm):
+        """finish() of a blend+encode launch: the one host read, then the
+        unit norm along the last axis in numpy (float32)."""
+
+        def finish():
+            embeds = out.cpu().numpy()
+            if norm:
+                embeds = embeds / np.linalg.norm(embeds, axis=-1,
+                                                 keepdims=True)
+            return embeds
+
+        return finish
+
+    def launch_blend_embeddings(self, orig_imT, inpaint_imT, masks,
+                                norm=True):
+        """Enqueue threshold-mask blend + encode on the card; returns a
+        zero-argument ``finish()`` that syncs and returns the [T,D]
+        embeddings, so callers overlap host work (IoU curves, the next
+        unit's mask build) with the device encode.
+
+        ``masks``: [T,H,W] boolean.  Monotone families (threshold masks
+        by construction: lower threshold ⊇ higher) upload as a single
+        [H*W] uint8 enter-count plane and run as one mono program;
+        general families fall back to bit-packed per-chunk programs."""
+        masks = np.asarray(masks)
+        assert masks.dtype == bool and masks.ndim == 3, (
+            "blend_embeddings needs [T,H,W] boolean masks")
+        T = masks.shape[0]
+        bs = self.batch_size
+
+        mono = (T <= 255
+                and bool(np.all(masks[1:] >= masks[:-1])))
+        if mono:
+            counts = masks.sum(axis=0, dtype=np.uint8).reshape(-1)
+            return self.launch_blend_embeddings_counts(
+                orig_imT, inpaint_imT, counts, T, norm=norm)
+        orig = self._device_put_memo(np.asarray(orig_imT, np.float32))
+        inp = self._device_put_memo(np.asarray(inpaint_imT, np.float32))
+        bits = np.packbits(masks.reshape(T, -1), axis=1)
+        pad = (-T) % bs
+        if pad:  # padded rows: all-zero mask -> blend == orig, discarded
+            bits = np.concatenate(
+                [bits, np.zeros((pad, bits.shape[1]), np.uint8)])
+        fn = self._blend_encode_fn()
+        bits_d = self._upload(bits)
+        out = torch.cat([fn(self.net.params, orig, inp, bits_d[i:i + bs])
+                         for i in range(0, T + pad, bs)])[:T]
+        return self._finish_embeds(out, norm)
+
+    def launch_blend_embeddings_counts(self, orig_imT, inpaint_imT,
+                                       counts, T, norm=True):
+        """Monotone-family fast path of :meth:`launch_blend_embeddings`
+        taking the [H*W] uint8 enter-count plane directly (counts[p] =
+        number of masks containing pixel p; mask t contains p iff
+        counts[p] >= T - t).  Callers that derive masks from a threshold
+        plane (inpainting-game eval) compute counts with one searchsorted
+        instead of materializing the [T,H,W] family."""
+        finish = self.launch_blend_embeddings_counts_multi(
+            orig_imT, inpaint_imT, np.reshape(counts, (1, -1)), T, norm=norm)
+        return lambda: finish()[0]
+
+    def launch_blend_embeddings_counts_multi(self, orig_imT, inpaint_imT,
+                                             counts_mat, T, norm=True):
+        """Batch M monotone mask families over one probe/twin pair into a
+        single blend+encode program (``counts_mat``: [M, H*W] uint8
+        enter-count planes).  ``finish()`` returns [M, T, D] embeddings.
+        The inpainting-game analysis uses this to evaluate all of a
+        probe's saliency methods in one program."""
+        M = np.shape(counts_mat)[0]
+        return self.launch_blend_embeddings_counts_multi_pair(
+            [orig_imT], [inpaint_imT], counts_mat, np.zeros(M, np.int32), T,
+            norm=norm)
+
+    def blend_embeddings(self, orig_imT, inpaint_imT, masks, norm=True):
+        """Threshold-mask blend + encode on the card (synchronous form of
+        :meth:`launch_blend_embeddings`)."""
+        return self.launch_blend_embeddings(orig_imT, inpaint_imT, masks,
+                                            norm=norm)()
+
     def convert_from_numpy(self, img):
         """Float/uint8 RGB HWC image -> [1,C,H,W] net input."""
         from xfr_torch.utils.image import resize as _resize
@@ -835,3 +1063,12 @@ class Whitebox:
         img = _resize(img, (224, 224))
         img = (img * 255).astype(np.uint8)
         return self.net.preprocess(img)
+
+    def preprocess_loader(self, images, returnImageIndex=False, repeats=1):
+        """Iterate (displayable image, [C,H,W] net input, filename)."""
+        from xfr_torch.utils.image import image_loader
+        for im, fn in image_loader(images, returnFileName=True,
+                                   returnImageIndex=returnImageIndex,
+                                   repeats=repeats):
+            imT = self.convert_from_numpy(im)
+            yield im, imT[0], fn

@@ -1,1 +1,2 @@
-from xfr_torch.utils.cache import content_key, memo_put  # noqa: F401
+from xfr_torch.utils.cache import (  # noqa: F401
+    cache_npz, cache_npz_launch, content_key, memo_put)
