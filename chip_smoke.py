@@ -47,6 +47,23 @@ non-zero and prints no result line:
              evals/s, peak memory, launch against group time, host IoU
              time, steps and rows per group, and one profiled group's
              device time by kernel group, the blend's share and idle share
+  wsebp_parity the per-probe weighted_subtree_ebp (fused, host and
+             max_candidates paths) on the card and on the CPU, same
+             weights: ResNet-101 at full widths with one block per stage,
+             float32 sweep, top-32, norelu; on the card the per-probe map
+             must equal the batched path's
+  generate   the generation stage on full ResNet-101+L2
+             ("resnetv4_pytorch", the CLIs' default net) with the CLIs'
+             defaults and in-memory jobs: the batched whitebox generator's
+             groups (19 jobs: 8, 8 and a padded 3), double-buffered as
+             generate_wb_smaps_batched runs them, after one warm-up group
+             launched with every host sync refused; one probe through the
+             serial method functions; two STRise jobs (6,500 masks,
+             mean-EBP prior, "high") through one BBPipeline, each map
+             against STRise.evaluate() of the same seed.  Maps/s, peak
+             memory, per-method times; the writer normalizes each map as
+             create_save_smap does and saves its npz (no PNG: the card's
+             machine has no imageio)
 
 The last lines are the card's name and power limit, the "kernels" line
 and {"ok": true, "device": {...}}.
@@ -538,9 +555,12 @@ def drain_mix(wb, launched):
 
 
 def check_wb_maps(out):
-    for name in ("mean_ebp", "contrastive", "truncated_contrastive",
-                 "weighted_subtree"):
-        for m in out[name]:
+    """Every {method: [maps]} entry: 112x112 saliency maps, finite,
+    non-negative, unit mass."""
+    for name, maps in out.items():
+        if name == "subtrees":
+            continue
+        for m in maps:
             assert m.shape == (112, 112), (name, m.shape)
             assert np.isfinite(m).all() and m.min() >= 0, name
             assert abs(float(m.sum(dtype=np.float64)) - 1.0) <= 1e-5, \
@@ -1052,6 +1072,280 @@ def phase_eval():
         raise AssertionError(f"eval steps {count}")
 
 
+# ---------------------------------------------------------------------------
+# Inpainting-game generation stage (the generate_* CLIs' core)
+# ---------------------------------------------------------------------------
+
+GEN_JOBS, GEN_B, GEN_BB_JOBS = 19, 8, 2  # groups of 8, 8 and a padded 3
+WSEBP_PATHS = {"fused": dict(return_subtree_maps=False),
+               "host": dict(return_subtree_maps=True),
+               # at one block per stage (59 candidates) 64 would take
+               # every candidate: 32 keeps the walk over a subset
+               "max_candidates": dict(max_candidates=32,
+                                      return_subtree_maps=False)}
+
+
+def phase_wsebp_parity():
+    """The per-probe weighted_subtree_ebp on the card and on the CPU with
+    the same weights and the same triplet classifier (encoded on the
+    CPU): ResNet-101 at full widths, one block per stage, float32 sweep,
+    top-32, norelu, each of the three paths.  Card against CPU: equal
+    k_subtree_valid, scores within rtol 5e-5, maps within 1e-4 of their
+    max (the CPU tests' limits at this depth).  On the card the fused
+    per-probe map must equal the batched path's for the same probe and
+    classifier (the same program on the same inputs: equal selections,
+    maps within 1e-6 of their max)."""
+    import torch
+
+    wbs = {dev: whitebox_net(dev, layers=(1, 1, 1, 1))
+           for dev in ("cpu", "cuda")}
+    w = whitebox_workload(wbs["cpu"], 1, seed=3)
+    for dev, wb in wbs.items():
+        wb.net.set_triplet_classifier(w["em"].to(dev), w["en"].to(dev))
+    res, secs = {}, {}
+    for dev in ("cuda", "cpu", "cuda"):  # the first card pass warms up
+        for name, kw in WSEBP_PATHS.items():
+            t0 = time.time()
+            res[dev, name] = wbs[dev].weighted_subtree_ebp(
+                w["probes"].to(dev), 0, 1, topk=WB_TOPK,
+                subtree_mode="norelu", **kw)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            secs[dev, name] = time.time() - t0
+    rec, ok = {}, True
+    for name in WSEBP_PATHS:
+        (s_c, m_c, sc_c, k_c), (s_p, m_p, sc_p, k_p) = (res["cuda", name],
+                                                        res["cpu", name])
+        same = k_c == k_p and len(m_c) == len(m_p)
+        map_err = score_err = None
+        if same:
+            map_err = max(float(np.abs(a - b).max() / np.abs(b).max())
+                          for a, b in zip([s_c] + m_c, [s_p] + m_p))
+            score_err = float(np.max(np.abs(np.subtract(sc_c, sc_p)) /
+                                     np.maximum(np.abs(sc_p), 1e-30)))
+        rec[name] = {"selected": len(k_c), "same_subtrees": k_c == k_p,
+                     "subtree_maps": len(m_c),
+                     "map_max_err_rel_to_max": map_err,
+                     "score_max_rel_err": score_err,
+                     "cuda_s": secs["cuda", name],
+                     "cpu_s": secs["cpu", name]}
+        ok &= same and score_err <= 5e-5 and map_err <= 1e-4
+        check_wb_maps({"weighted_subtree": [s_c]})
+    card = wbs["cuda"]
+    card.set_triplet_classifier_batch(w["em"].cuda()[None],
+                                      w["en"].cuda()[None])
+    s_b, _, sc_b, k_b = card.weighted_subtree_ebp_batch(
+        w["probes"].cuda(), topk=WB_TOPK, subtree_mode="norelu")[0]
+    s_f, _, sc_f, k_f = res["cuda", "fused"]
+    batch_err = float(np.abs(s_b - s_f).max() / np.abs(s_f).max())
+    same_batch = k_b == k_f and batch_err <= 1e-6
+    emit("wsebp_parity", layers=[1, 1, 1, 1], paths=rec,
+         batched_equals_per_probe={"same_subtrees": k_b == k_f,
+                                   "map_max_err_rel_to_max": batch_err,
+                                   "scores_equal": sc_b == sc_f},
+         tol={"score_rtol": 5e-5, "map_err_rel_to_max": 1e-4,
+              "batched_map_err_rel_to_max": 1e-6})
+    if not (ok and same_batch):
+        raise AssertionError(f"per-probe weighted subtree: {rec}, batched "
+                             f"equal {same_batch} ({batch_err})")
+
+
+def generation_jobs(n, seed=0):
+    """n in-memory whitebox jobs with every method to write: a random
+    224x224 probe, two mates and two nonmates each."""
+    todo = dict.fromkeys(("meanEBP", "contrastive", "trunc",
+                          "weighted-subtree"), True)
+    jobs = []
+    for i in range(n):
+        ims = _images(seed + i, 5)
+        jobs.append({"label": ("job", i), "todo": dict(todo),
+                     "images": (ims[0], ims[1:3], ims[3:5])})
+    return jobs
+
+
+def npz_writer(out_dir, written):
+    """A write(job, slug_key, smap) callback: create_save_smap's
+    normalization (shift to 0, unit mass) and its npz, no PNG."""
+    import os
+
+    def write(job, key, smap):
+        smap = np.array(smap, np.float32)
+        smap -= smap.min()
+        total = smap.sum()
+        if total > 0:
+            smap /= total
+        np.savez_compressed(os.path.join(out_dir, "%s-%d-%s.npz" % (
+            job["label"][0], job["label"][1], key)), saliency_map=smap)
+        written.append(smap)
+
+    return write
+
+
+def phase_generate():
+    """The generation stage on full ResNet-101+L2 with the CLIs' defaults
+    (net "resnetv4_pytorch", ebp_version 6, bfloat16 sweep, float32
+    contrastive, weighted subtree in the net's norelu mode, batch 8,
+    score precision "high")."""
+    import tempfile
+
+    import torch
+    from xfr_torch.blackbox import fused_blend as FB
+    from xfr_torch.blackbox.strise import STRise
+    from xfr_torch.inpainting_game import generate as G
+    from xfr_torch.models import create_wbnet
+
+    t0 = time.time()
+    wb = create_wbnet("resnetv4_pytorch", ebp_version=6, device="cuda")
+    wb.wsebp_dtype = torch.bfloat16
+    mode = wb.ebp_subtree_mode()
+    net_s = time.time() - t0
+    k1_before = FB.fused_mask_blend_preprocess.launches
+
+    host = {"resolve_s": 0.0, "write_s": 0.0}
+
+    def resolve(j):
+        t = time.time()
+        probe, mates, nonmates = j["images"]
+        j = G.prepare_wb_job(wb, j, probe, mates, nonmates)
+        host["resolve_s"] += time.time() - t
+        return j
+
+    tmp = tempfile.TemporaryDirectory()
+    written = []
+    save = npz_writer(tmp.name, written)
+
+    def write(job, key, smap):
+        t = time.time()
+        save(job, key, smap)
+        host["write_s"] += time.time() - t
+
+    # one warm-up group, every host sync refused during its launch
+    t0 = time.time()
+    group = [resolve(j) for j in generation_jobs(GEN_B, seed=100)]
+    with host_syncs_refused(True):
+        st = G.launch_wb_group(wb, group, GEN_B, mode, 6)
+    G.drain_wb_group(wb, st, write)
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+
+    # the batched generator's double-buffered groups
+    written.clear()
+    host.update(resolve_s=0.0, write_s=0.0)
+    failures = []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    done = G.run_wb_groups(wb, generation_jobs(GEN_JOBS), resolve, write,
+                           GEN_B, mode, 6, failures=failures)
+    torch.cuda.synchronize()
+    wb_s = time.time() - t0
+    wb_peak = torch.cuda.max_memory_allocated()
+    wb_host = dict(host)
+    n_maps = len(written)
+    check_wb_maps({"weighted_subtree": written})
+    if failures or done != GEN_JOBS or n_maps != 4 * GEN_JOBS:
+        raise AssertionError(f"batched generation: {done} jobs, {n_maps} "
+                             f"maps, failures {failures}")
+
+    # one probe through the serial method functions
+    probe, mates, nonmates = generation_jobs(1, seed=200)[0]["images"]
+    serial = {}
+
+    def timed(name, fn):
+        """The method twice: its first call, then a timed call with its
+        peak memory."""
+        t = time.time()
+        fn()
+        torch.cuda.synchronize()
+        first = time.time() - t
+        torch.cuda.reset_peak_memory_stats()
+        t = time.time()
+        m = fn()
+        torch.cuda.synchronize()
+        serial[name] = {"first_s": first, "s": time.time() - t,
+                        "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+        check_wb_maps({"weighted_subtree": [m]})
+
+    timed("meanEBP", lambda: G.mean_ebp(wb, probe))
+    timed("contrastive", lambda: G.run_contrastive_triplet_ebp(
+        wb, mates, nonmates, probe, None))
+    timed("trunc", lambda: G.run_contrastive_triplet_ebp(
+        wb, mates, nonmates, probe, G.TRUNCATE_PERCENT))
+    for mc in (None, 64):
+        timed("weighted-subtree max_candidates=%s" % mc,
+              lambda mc=mc: G.run_weighted_subtree_triplet_ebp(
+                  wb, mates, nonmates, probe, mode, topk=G.WSEBP_TOPK,
+                  ebp_version=6, max_candidates=mc))
+    wb.net.reset_classifier()
+
+    # blackbox jobs through one BBPipeline with the built-in matcher; the
+    # resident net also serves the mean-EBP prior, as the BB CLI aliases it
+    net_dict = {("resnetv4_pytorch", 6): wb, ("resnetv4_pytorch", None): wb}
+    bb_jobs = [_images(300 + i, 5) for i in range(GEN_BB_JOBS)]
+    kw = dict(rise_scale=SCALE, num_mask_elements=ELEMS,
+              mask_fill_type="blur", blur_sigma_percent=4, device="cuda",
+              num_masks=N_MASKS, prior_type="mean_ebp",
+              score_precision="high")
+    bb_maps = {}
+
+    def bb_writer(i, finish):
+        def run():
+            bb_maps[i] = finish()
+            write({"label": ("bb", i)}, "bbox-rise", bb_maps[i])
+        return run
+
+    pipe = G.BBPipeline()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    for i, ims in enumerate(bb_jobs):
+        finish = G.create_bbox(("resnetv4_pytorch", net_dict), ims[0],
+                               ims[1:3], ims[3:5], seed=i, **kw).launch()
+        pipe.push(bb_writer(i, finish), label=("bb", i))
+    pipe.drain()
+    torch.cuda.synchronize()
+    bb_s = time.time() - t0
+    bb_peak = torch.cuda.max_memory_allocated()
+    if pipe.failures or len(bb_maps) != GEN_BB_JOBS:
+        raise AssertionError(f"blackbox pipeline failures {pipe.failures}")
+    bb_rec = []
+    for i, ims in enumerate(bb_jobs):
+        st_e = STRise(probe=ims[0], refs=ims[1:3], gallery=ims[3:5],
+                      black_box="resnetv4_pytorch", net_dict=net_dict,
+                      mask_scale=SCALE, num_mask_elements=ELEMS,
+                      mask_fill_type="blur", blur_fill_sigma_percent=4,
+                      num_masks=N_MASKS, seed=i, prior_type="mean_ebp",
+                      device="cuda", score_precision="high")
+        st_e.evaluate()
+        check_map(bb_maps[i])
+        # as in phase_branches: one float32 step near 1.0 of the raw map
+        # is q of the range-normalized map
+        raw = st_e.combine_masks(st_e.mask_scores > 0)
+        q = float(np.spacing(np.float32(0.5)) / (raw.max() - raw.min()))
+        bb_rec.append({
+            "map_max_abs_diff": float(np.abs(
+                bb_maps[i] - st_e.saliency_map).max()),
+            "map_f32_step": q, "tol": 1e-3 + 4 * q,
+            "corr": float(np.corrcoef(bb_maps[i].ravel(),
+                                      st_e.saliency_map.ravel())[0, 1])})
+    k1 = FB.fused_mask_blend_preprocess.launches - k1_before
+    tmp.cleanup()
+    emit("generate", net="resnetv4_pytorch", net_s=net_s,
+         batched={"jobs": GEN_JOBS, "batch": GEN_B, "maps": n_maps,
+                  "s": wb_s, "maps_per_s": n_maps / wb_s,
+                  "warmup_group_s": warm_s, "peak_mem_bytes": wb_peak,
+                  "maps_computed": 4 * GEN_B * -(-GEN_JOBS // GEN_B),
+                  "host": wb_host, "wsebp_dtype": "bfloat16"},
+         serial=serial,
+         blackbox={"jobs": GEN_BB_JOBS, "masks": N_MASKS, "s": bb_s,
+                   "maps_per_s": GEN_BB_JOBS / bb_s,
+                   "peak_mem_bytes": bb_peak, "vs_evaluate": bb_rec,
+                   "score_precision": "high"},
+         k1_launches=k1)
+    if k1 != 0:
+        raise AssertionError(f"the generation path launched K1 {k1} times")
+    if any(r["map_max_abs_diff"] > r["tol"] for r in bb_rec):
+        raise AssertionError(f"BBPipeline maps against evaluate(): {bb_rec}")
+
+
 def main():
     import torch
 
@@ -1081,6 +1375,8 @@ def main():
     del wb, w
     phase_eval_parity()
     phase_eval()
+    phase_wsebp_parity()
+    phase_generate()
     emit("done", seconds=time.time() - t_start)
     print(smi, flush=True)
     print(json.dumps({"kernels": [k1]}), flush=True)

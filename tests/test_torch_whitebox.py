@@ -233,7 +233,9 @@ def test_launch_paths_read_nothing_on_the_host(monkeypatch):
 
 def test_refusals():
     """float16 cannot carry eps=1e-16 in the sweep; the probe batch must
-    match the batch classifier; return_subtree_maps=True is not ported."""
+    match the batch classifier.  return_subtree_maps=True, refused before
+    the per-probe path was ported, now runs and returns each probe's
+    selected subtree maps."""
     _, twb, probes = _toy_batch()
     twb.eps = 1e-16
     twb.wsebp_dtype = torch.float16
@@ -243,8 +245,13 @@ def test_refusals():
     assert twb._wsebp_dtype == torch.bfloat16
     with pytest.raises(ValueError, match="set_triplet_classifier_batch"):
         twb.ebp_batch(probes[:2])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        twb.weighted_subtree_ebp_batch(probes, return_subtree_maps=True)
+    twb.wsebp_dtype = None
+    out = twb.weighted_subtree_ebp_batch(probes, topk=3,
+                                         return_subtree_maps=True)
+    assert len(out) == 3
+    for smap, maps, scores, ks in out:
+        assert smap.shape == (56, 56) and len(maps) == len(ks) >= 1
+        assert len(scores) == len(ks)
 
 
 # ---------------------------------------------------------------------------
@@ -528,3 +535,22 @@ def test_resnet_golden_contrastive_gap_is_jax_float32_combine(
                                    atol=port_lim * gmax, err_msg=name)
         np.testing.assert_allclose(jx, rg["golden"][name], rtol=0,
                                    atol=jax_lim * gmax, err_msg=name)
+
+
+def test_resnet_golden_weighted_subtree_top8(resnet_golden):
+    """weighted_subtree_ebp_top8 of demo/whitebox_goldens.npz from the
+    port's per-probe path: ebp_version 5 (the uint8 map), the traced
+    injection over the 16 top-ranked candidates, subtree mode "all",
+    top-8, the triplet classifier of the JAX net's encodings, float32 at
+    full depth.  Held at test_demo_goldens.py's tolerance."""
+    rg = resnet_golden
+    wb = _golden_whitebox(rg, np.float32)
+    wb5 = Whitebox(wb.net, ebp_version=5, ebp_subtree_mode=rg["mode"])
+    wb5.net.set_triplet_classifier(rg["em"], rg["en"])
+    smap, _, _, k = wb5.weighted_subtree_ebp(
+        rg["x"], 0, 1, topk=8, subtree_mode="all", max_candidates=16,
+        return_subtree_maps=False)
+    g = rg["golden"]["weighted_subtree_ebp_top8"]
+    assert smap.dtype == np.uint8 and len(k) == 8
+    np.testing.assert_allclose(smap.astype(np.float32), g, rtol=1e-3,
+                               atol=1e-5 * max(g.max(), 1e-12))

@@ -12,7 +12,9 @@ sources under ``xfr_torch/csrc/``, built by ``nvcc`` at first use.
 
 Ported so far: the STRise blackbox saliency path (graph IR, ops,
 ResNet-101+L2, the single EBP walk, masks, the fused mask-blend kernel and
-the scorer), the whitebox 4-map mix, and the inpainting game's
+the scorer), the whitebox 4-map mix, the inpainting game's generation
+stage (the per-probe weighted-subtree path, the generators, the dataset
+filter, the match-threshold calibration and their CLIs) and its
 evaluation stage (protocol, blend+encode, analysis, the ``run_eval`` and
 ``hiding_game`` CLIs).  ROADMAP.md lists what is still to be ported.
 

@@ -5,15 +5,16 @@ the pooled mean-EBP walk (``_ebp_pooled_fn``, ``ebp``, ``ebp_batch``), the
 contrastive family (single probe, batched and the fused both-maps
 launch), the interleaved batch triplet classifier, and the batched
 weighted-subtree path (ranking pass, probe-chunked candidate sweep,
-select+merge, ``launch_weighted_subtree_ebp_batch``); plus
-``_mwp_to_saliency``, ``encode``, ``embeddings``, ``convert_from_numpy``
-and ``preprocess_loader``.  That is the whitebox 4-map mix of the
-inpainting game.  The inpainting game's evaluation stage adds the
+select+merge, ``launch_weighted_subtree_ebp_batch``) and the per-probe
+``weighted_subtree_ebp`` (its fused, host and ``max_candidates`` paths,
+the last over the traced-injection walk); plus ``_mwp_to_saliency``,
+``encode``, ``embeddings``, ``convert_from_numpy`` and
+``preprocess_loader``.  That is the whitebox 4-map mix of the inpainting
+game, batched and serial.  The inpainting game's evaluation stage adds the
 blend+encode family: threshold-mask blends of a probe toward its twin,
 built and encoded on the card (bit-packed masks, the monotone enter-count
-plane, several maps of one pair, several pairs).  The layerwise methods,
-``subtree_ebp``, the per-probe ``weighted_subtree_ebp`` and its
-traced-injection sweep wait for ROADMAP queue 1, item 6.
+plane, several maps of one pair, several pairs).  The layerwise methods
+and ``subtree_ebp`` wait for ROADMAP queue 1, item 6.
 
 The JAX package jits each program; here each ``_*_fn`` method returns a
 plain function that enqueues its work on the current stream, and a
@@ -576,61 +577,97 @@ class Whitebox:
     # Weighted subtree EBP, probe-batched
     # ------------------------------------------------------------------
 
-    def _wsebp_grad_batch_fn(self):
-        """(params, x, gating) -> per-probe subtree scores, argmaxes and
-        injection values [B, n_events-1] each, for a probe batch under the
-        interleaved [2B, D] triplet classifier: the ranking pass.
+    def _wsebp_rank(self, params, x, gating, cotangents):
+        """The ranking pass's body, for a probe batch of B >= 1: per-probe
+        subtree scores, argmaxes and injection values [B, n_events-1] each.
 
-        One natural backward walks the mate (or softmax cross-entropy) and
-        nonmate cotangents as two rows; each event's dA pair is reduced to
-        its gated max and first argmax as it fires.  One EBP walk under the
-        mate cotangent then picks P_mate[k] at each event's argmax.  Always
-        float32 with TF32 off, whatever compute_dtype is."""
+        ``cotangents(y)`` gives, from the forward output y [B, K], the
+        natural backward's two cotangent rows [2, B, K] (mate, or softmax
+        cross-entropy without gating, then nonmate) and the mate cotangent
+        [B, K] of the EBP walk.  One natural backward walks the two rows;
+        each event's dA pair is reduced to its gated max and first argmax
+        as it fires.  One EBP walk under the mate cotangent then picks
+        P_mate[k] at each event's argmax.  Always float32 with TF32 off,
+        whatever compute_dtype is."""
         graph = self.net.graph
         mode, wb, eps = self._ebp_subtree_mode, self._ebp_with_bias, self.eps
         cand = tuple(range(graph.n_events - 1))
+        with precision_scope("high"):
+            B = x.shape[0]
+            params, values, posvals = self._capture(params, x, torch.float32)
+            cots, cot_pos = cotangents(values[graph.output_id])
+
+            def gate(_, dA):
+                a, b = dA[0], dA[1]
+                gated = ((a >= 0) * (-b)) if gating else ((a < 0) * (-b))
+                flat = gated.reshape(B, -1)
+                # ties (the plane is full of exact zeros) go to the first
+                # index, as jnp.argmax does
+                return flat.amax(dim=1), flat.argmax(dim=1)
+
+            ranked = I.natural_backward(graph, params, values, cots,
+                                        keep=cand, reduce=gate)
+            scores = torch.stack([ranked[k][0] for k in cand], 1)
+            idxs = torch.stack([ranked[k][1] for k in cand], 1)
+
+            def pick(k, P):
+                return P[0].reshape(B, -1).gather(1, idxs[:, k:k + 1])[:, 0]
+
+            picked = I.ebp_backward(
+                graph, params, values, posvals, cot_pos[None],
+                subtree_mode=mode, eps=eps, with_bias=wb, keep=cand,
+                reduce=pick)
+            vals = torch.stack([picked[k] for k in cand], 1)
+        return scores, idxs, vals
+
+    def _wsebp_grad_fn(self):
+        """(params, x [1,...], Pn_pos [1,K], gating) -> one probe's subtree
+        scores, argmaxes and injection values [n_events-1] each: the
+        per-probe ranking pass.  The natural backward's cotangents select
+        classifier rows 0 (mate) and 1 (nonmate), or without gating the
+        softmax cross-entropy over every class against row 0; ``Pn_pos``
+        seeds the EBP walk.  The one-hot rows are built by a comparison on
+        the card (no indexed write of a host scalar, which would wait for
+        it)."""
+
+        def fn(params, x, Pn_pos, gating):
+            def cotangents(y):
+                K = y.shape[1]
+                hot = (torch.arange(K, device=y.device)[None] ==
+                       torch.arange(2, device=y.device)[:, None]).to(y.dtype)
+                cot_m, cot_n = hot[:1], hot[1:]
+                if not gating:
+                    cot_m = torch.softmax(y, dim=-1) - cot_m
+                return torch.stack([cot_m, cot_n]), Pn_pos.to(y.dtype)
+
+            scores, idxs, vals = self._wsebp_rank(params, x, gating,
+                                                  cotangents)
+            return scores[0], idxs[0], vals[0]
+
+        return fn
+
+    def _wsebp_grad_batch_fn(self):
+        """(params, x, gating) -> per-probe subtree scores, argmaxes and
+        injection values [B, n_events-1] each, for a probe batch under the
+        interleaved [2B, D] triplet classifier: the batched ranking pass.
+        Each probe's cotangents select its own two classifier rows; without
+        gating, the softmax runs over each probe's own two logits."""
 
         def fn(params, x, gating):
-            with precision_scope("high"):
-                B = x.shape[0]
-                params, values, posvals = self._capture(params, x,
-                                                        torch.float32)
-                y = values[graph.output_id]  # [B, 2B]
+            def cotangents(y):
+                B = y.shape[0]
                 eye = torch.eye(B, dtype=y.dtype, device=y.device)
                 cot_m, cot_n = _interleave_rows(eye)
                 if gating:
-                    cots = torch.stack([cot_m, cot_n])
-                else:
-                    # per-probe softmax over each probe's own two logits
-                    pair = torch.diagonal(y.reshape(B, B, 2), 0, 0, 1).T
-                    sm = torch.softmax(pair, dim=-1)
-                    ce_m, _ = _interleave_rows(eye * (sm[:, :1] - 1.0))
-                    _, ce_n = _interleave_rows(eye * sm[:, 1:])
-                    cots = torch.stack([ce_m + ce_n, cot_n])
+                    return torch.stack([cot_m, cot_n]), cot_m
+                # per-probe softmax over each probe's own two logits
+                pair = torch.diagonal(y.reshape(B, B, 2), 0, 0, 1).T
+                sm = torch.softmax(pair, dim=-1)
+                ce_m, _ = _interleave_rows(eye * (sm[:, :1] - 1.0))
+                _, ce_n = _interleave_rows(eye * sm[:, 1:])
+                return torch.stack([ce_m + ce_n, cot_n]), cot_m
 
-                def gate(_, dA):
-                    a, b = dA[0], dA[1]
-                    gated = ((a >= 0) * (-b)) if gating else ((a < 0) * (-b))
-                    flat = gated.reshape(B, -1)
-                    # ties (the plane is full of exact zeros) go to the
-                    # first index, as jnp.argmax does
-                    return flat.amax(dim=1), flat.argmax(dim=1)
-
-                ranked = I.natural_backward(graph, params, values, cots,
-                                            keep=cand, reduce=gate)
-                scores = torch.stack([ranked[k][0] for k in cand], 1)
-                idxs = torch.stack([ranked[k][1] for k in cand], 1)
-
-                def pick(k, P):
-                    return P[0].reshape(B, -1).gather(
-                        1, idxs[:, k:k + 1])[:, 0]
-
-                picked = I.ebp_backward(
-                    graph, params, values, posvals, cot_m[None],
-                    subtree_mode=mode, eps=eps, with_bias=wb, keep=cand,
-                    reduce=pick)
-                vals = torch.stack([picked[k] for k in cand], 1)
-            return scores, idxs, vals
+            return self._wsebp_rank(params, x, gating, cotangents)
 
         return fn
 
@@ -762,19 +799,33 @@ class Whitebox:
         batch triplet classifier (set_triplet_classifier_batch).  Per-probe
         results match the 2-class runs of each probe.
 
-        Returns a list of (smap, [], P_subtree_valid, k_subtree_valid)
-        tuples.  ``return_subtree_maps=True`` (the per-probe host path
-        ``_wsebp_post``) is not ported yet."""
-        if return_subtree_maps:
-            raise NotImplementedError(
-                "return_subtree_maps=True goes through the per-probe "
-                "weighted-subtree path, not ported yet: ROADMAP queue 1, "
-                "item 6")
-        return self.launch_weighted_subtree_ebp_batch(
-            x, topk=topk, verbose=verbose, do_max_subtree=do_max_subtree,
-            do_mated_similarity_gating=do_mated_similarity_gating,
-            subtree_mode=subtree_mode,
-            do_mwp_to_saliency=do_mwp_to_saliency)()
+        Returns a list of (smap, P_img_valid, P_subtree_valid,
+        k_subtree_valid) tuples.  ``return_subtree_maps=True`` reads the
+        ranking pass on the host and runs each probe through the per-probe
+        host path (``_wsebp_post``), which also returns the selected
+        subtrees' maps; otherwise P_img_valid is []."""
+        if not return_subtree_maps:
+            return self.launch_weighted_subtree_ebp_batch(
+                x, topk=topk, verbose=verbose, do_max_subtree=do_max_subtree,
+                do_mated_similarity_gating=do_mated_similarity_gating,
+                subtree_mode=subtree_mode,
+                do_mwp_to_saliency=do_mwp_to_saliency)()
+        x, B = self._pad_probe_batch(x)
+        prev_mode = self._ebp_subtree_mode
+        self._ebp_subtree_mode = subtree_mode
+        try:
+            scores_d, idxs_d, vals_d = self._wsebp_grad_batch_fn()(
+                self.net.params, x, bool(do_mated_similarity_gating))
+            scores = scores_d.cpu().numpy().astype(np.float32)
+            idxs = idxs_d.cpu().numpy()
+            vals = vals_d.cpu().numpy().astype(np.float32)
+            return [self._wsebp_post(
+                        x[i:i + 1], scores[i], idxs[i], vals[i], topk,
+                        verbose, do_max_subtree, do_mwp_to_saliency, None,
+                        return_subtree_maps)
+                    for i in range(B)]
+        finally:
+            self._ebp_subtree_mode = prev_mode
 
     def _wsebp_fused_finish(self, smap, sel, P_subtree, verbose,
                             do_mwp_to_saliency):
@@ -802,6 +853,251 @@ class Whitebox:
         return (
             self._mwp_to_saliency(smap) if do_mwp_to_saliency else smap,
             [], P_subtree_valid, k_subtree_valid)
+
+    # ------------------------------------------------------------------
+    # Weighted subtree EBP, one probe
+    # ------------------------------------------------------------------
+
+    def weighted_subtree_ebp(self, img_probe, k_poschannel, k_negchannel,
+                             topk=1, verbose=False, do_max_subtree=False,
+                             do_mated_similarity_gating=True,
+                             subtree_mode="norelu", do_mwp_to_saliency=True,
+                             max_candidates=None, return_subtree_maps=True):
+        """Weighted subtree EBP for one probe under the installed 2-class
+        triplet classifier.
+
+        The ranking pass gates every backward event to score its subtree;
+        then every candidate's prior-injected EBP walk runs as one row of
+        a batched walk, and the last ``topk`` valid candidates in score
+        order are merged.  ``max_candidates`` walks only that many of the
+        top-ranked candidates (None: all n_events-1).  Three paths:
+
+        * fused (``max_candidates`` None, ``return_subtree_maps`` False):
+          sweep, selection and merge on the device, one read of the
+          result;
+        * host (``return_subtree_maps`` True): the full sweep, the
+          selection on the host from the per-candidate maxima, the merge
+          on the device; also returns the selected subtrees' maps;
+        * ``max_candidates``: the traced-injection walk over the chosen
+          candidates, then the host path's selection and merge.
+
+        Returns (smap, P_img_valid, P_subtree_valid, k_subtree_valid);
+        P_img_valid is [] unless ``return_subtree_maps``."""
+        prev_mode = self._ebp_subtree_mode
+        self._ebp_subtree_mode = subtree_mode
+        try:
+            return self._weighted_subtree_ebp(
+                img_probe, k_poschannel, k_negchannel, topk, verbose,
+                do_max_subtree, do_mated_similarity_gating,
+                do_mwp_to_saliency, max_candidates, return_subtree_maps)
+        finally:
+            self._ebp_subtree_mode = prev_mode
+
+    def _weighted_subtree_ebp(self, img_probe, k_poschannel, k_negchannel,
+                              topk, verbose, do_max_subtree,
+                              do_mated_similarity_gating, do_mwp_to_saliency,
+                              max_candidates, return_subtree_maps=True):
+        x = self._as_input(img_probe)
+        Pn_pos = self._onehot(k_poschannel)
+        scores, idxs, vals = self._wsebp_grad_fn()(
+            self.net.params, x, Pn_pos, bool(do_mated_similarity_gating))
+        return self._wsebp_post(
+            x, scores.cpu().numpy().astype(np.float32), idxs.cpu().numpy(),
+            vals.cpu().numpy().astype(np.float32), topk, verbose,
+            do_max_subtree, do_mwp_to_saliency, max_candidates,
+            return_subtree_maps)
+
+    def _wsebp_inject_fn(self, start_node=None):
+        """(params, x, ev_ids, elems, vals) -> (P_img [R,1,H,W] float32,
+        maxes [R]): the prior-injected EBP walks of R candidates, each
+        injecting its value at its flat element of its event, as the R
+        rows of one walk with a zero output cotangent (the JAX package's
+        ``jax.vmap`` over candidates).
+
+        ``start_node`` truncates the walk: with a zero output cotangent the
+        gradient above the injection point is identically zero, so
+        candidates that all fire at nodes <= start_node skip the deeper
+        vjps."""
+        graph = self.net.graph
+        mode, wb, eps = self._ebp_subtree_mode, self._ebp_with_bias, self.eps
+        kk = graph.n_events - 2
+        sweep_dt = self._wsebp_dtype
+
+        def fn(params, x, ev_ids, elems, vals):
+            with precision_scope("high"):
+                params, values, posvals = self._capture(params, x, sweep_dt)
+                dtype = values[graph.input_id].dtype
+                y = values[graph.output_id]
+                zero_cot = y.new_zeros((ev_ids.shape[0],) + tuple(y.shape))
+                out = I.ebp_backward(
+                    graph, params, values, posvals, zero_cot,
+                    subtree_mode=mode, eps=eps, with_bias=wb, keep=(kk,),
+                    inject_spec=(ev_ids, elems, vals.to(dtype)),
+                    start_node=start_node)
+            P_img = out[kk].sum(dim=2, dtype=torch.float32)  # [R, 1, H, W]
+            # only the per-candidate maxima are read on the host; the maps
+            # stay on the device
+            return P_img, P_img.amax(dim=(1, 2, 3))
+
+        return fn
+
+    def _wsebp_sweep_fn(self, n_buckets=12):
+        """(params, x, elems, vals) -> (P_img [n_cand,1,H,W], maxes
+        [n_cand]): the full-candidate sweep in static event order (row k
+        is event k), the batched walk ``I.ebp_backward_allevents`` without
+        the selection."""
+        graph = self.net.graph
+        mode, wb, eps = self._ebp_subtree_mode, self._ebp_with_bias, self.eps
+        sweep_dt = self._wsebp_dtype
+        casc = bool(self.wsebp_cascade)
+
+        def fn(params, x, elems, vals):
+            with precision_scope("high"):
+                params, values, posvals = self._capture(params, x, sweep_dt)
+                return I.ebp_backward_allevents(
+                    graph, params, values, posvals, elems,
+                    vals.to(values[graph.input_id].dtype), subtree_mode=mode,
+                    eps=eps, with_bias=wb, n_buckets=n_buckets,
+                    cascade=casc)
+
+        return fn
+
+    def _wsebp_sweep_select_fn(self, topk, do_max, n_buckets=12):
+        """(params, x, elems, vals, scores) -> (merged [H,W], sel
+        [n_cand]): one probe's full sweep, valid-subtree selection and
+        weighted merge in one program, the batched sweep's body with one
+        probe."""
+        batched = self._wsebp_sweep_select_scan_fn(topk, do_max, n_buckets,
+                                                   probe_chunk=1)
+
+        def fn(params, x, elems, vals, scores):
+            merged, sel = batched(params, x, elems[None], vals[None],
+                                  scores[None])
+            return merged[0], sel[0]
+
+        return fn
+
+    def _wsebp_fused_launch(self, x, elems, vals, scores, topk,
+                            do_max_subtree):
+        """Enqueue one probe's fused sweep+select+merge program; returns
+        device tensors without waiting for the card."""
+        return self._wsebp_sweep_select_fn(topk, bool(do_max_subtree))(
+            self.net.params, x, elems, vals, scores)
+
+    def _wsebp_buckets(self, n_buckets=6):
+        """Static partition of candidate events 0..n_events-2 into buckets
+        by fire node, each with its truncation start_node (the largest
+        node in the bucket): ((start_node, events), ...)."""
+        graph = self.net.graph
+        ev_node = graph.event_node
+        cand = sorted(range(graph.n_events - 1), key=lambda e: ev_node[e])
+        n_buckets = min(n_buckets, len(cand))
+        size = -(-len(cand) // n_buckets)
+        return tuple((max(ev_node[e] for e in cand[o:o + size]),
+                      tuple(cand[o:o + size]))
+                     for o in range(0, len(cand), size))
+
+    def _wsebp_merge_fn(self, do_max):
+        """(P_img, sel, weights) -> (merged [H,W], maps): gather the
+        selected subtree maps, weight each max-normalized map by its
+        normalized subtree score, merge by sum or max, on the device."""
+
+        def fn(P_img, sel, weights):
+            maps = P_img[sel]  # [m, 1, H, W]
+            norm = maps * (1.0 / (maps.amax(dim=(1, 2, 3), keepdim=True)
+                                  + 1e-12))
+            weighted = weights[:, None, None, None] * norm
+            merged = weighted.amax(dim=0) if do_max else weighted.sum(dim=0)
+            return merged[0], maps
+
+        return fn
+
+    def _wsebp_post(self, x, P_subtree, P_subtree_idx, inj_vals, topk,
+                    verbose, do_max_subtree, do_mwp_to_saliency,
+                    max_candidates, return_subtree_maps):
+        """From one probe's host ranking (scores, argmaxes, injection
+        values, numpy), the sweep, selection and merge of the three paths
+        of ``weighted_subtree_ebp``."""
+        dev = self.device
+        n_ev = self._n_events
+
+        def up(a, dtype):
+            return torch.as_tensor(np.asarray(a, dtype), device=dev)
+
+        if max_candidates is None and not return_subtree_maps:
+            smap_dev, sel_dev = self._wsebp_fused_launch(
+                x, up(P_subtree_idx, np.int32), up(inj_vals, np.float32),
+                up(P_subtree, np.float32), topk, do_max_subtree)
+            return self._wsebp_fused_finish(
+                smap_dev.cpu().numpy().astype(np.float32),
+                sel_dev.cpu().numpy(), P_subtree, verbose,
+                do_mwp_to_saliency)
+
+        # candidates in ascending score order, as the reference's argsort;
+        # it then keeps the last topk valid entries
+        k_order = np.argsort(P_subtree, kind="stable")
+        if max_candidates is not None:
+            k_order = k_order[-int(max_candidates):]
+            # the walk starts at the deepest candidate's node: above it the
+            # zero cotangent carries nothing
+            start = max(self.net.graph.event_node[int(k)] for k in k_order)
+            P_img_dev, maxes = self._wsebp_inject_fn(start)(
+                self.net.params, x, up(k_order, np.int32),
+                up(P_subtree_idx[k_order], np.int32),
+                up(inj_vals[k_order], np.float32))
+            row = {int(e): i for i, e in enumerate(k_order)}
+        else:
+            P_img_dev, maxes = self._wsebp_sweep_fn()(
+                self.net.params, x, up(P_subtree_idx, np.int32),
+                up(inj_vals, np.float32))
+            row = None
+        maxes = maxes.cpu().numpy()  # the maps stay on the device
+
+        if verbose:
+            for k in k_order:
+                print("[weighted_subtree_ebp][%d]: layername=%s, grad=%f"
+                      % (k, self.P_layername[k], P_subtree[k]))
+
+        # valid subtrees: map max > 0, and never event 1 (the Multiply
+        # layer's event on STR-Janus)
+        if row is None:
+            max_of_event = maxes
+        else:
+            max_of_event = np.zeros(n_ev - 1, maxes.dtype)
+            max_of_event[k_order] = maxes
+        k_subtree_valid = [int(k) for k in k_order
+                           if max_of_event[k] > 0 and k != 1][-topk:]
+        if len(k_subtree_valid) == 0:
+            raise RuntimeError(
+                "Failed to calculate valid subtrees. The ebp subtree mode "
+                "(%s) may not be supported by this type of network. You may "
+                'want to try the "affineonly_with_prior" ebp subtree mode.'
+                % self._ebp_subtree_mode)
+        P_subtree_valid = [float(P_subtree[k]) for k in k_subtree_valid]
+        norm = self._scale_normalized(P_subtree_valid)
+        if np.sum(norm) == 0:
+            norm = np.ones_like(P_subtree_valid)
+
+        rows = [k if row is None else row[k] for k in k_subtree_valid]
+        sel_maps = P_img_dev[up(rows, np.int64)]
+        smap_dev, maps_dev = self._wsebp_merge_fn(bool(do_max_subtree))(
+            sel_maps, torch.arange(len(rows), device=dev),
+            up(norm, np.float32))
+        smap = smap_dev.cpu().numpy().astype(np.float32)
+        P_img_valid = ([np.squeeze(p).astype(np.float32)
+                        for p in maps_dev.cpu().numpy()]
+                       if return_subtree_maps else [])
+
+        if self.convert_saliency_uint8:
+            smap = self._float32_to_uint8(smap)
+        else:
+            smap = smap / max(smap.sum(), self.eps)
+        return (
+            self._mwp_to_saliency(smap) if do_mwp_to_saliency else smap,
+            [self._mwp_to_saliency(P) if do_mwp_to_saliency else P
+             for P in P_img_valid],
+            P_subtree_valid,
+            k_subtree_valid)
 
     # ------------------------------------------------------------------
     # Embeddings

@@ -17,10 +17,10 @@ Two forward passes and one explicit, statically scheduled backward walk:
                       vjps use positive weights; nonlinear vjps linearize
                       at clean values.
 
-Ported: the single walk (``ebp``, ``ebp_backward``), ``natural_backward``
-and the batched prior-injected sweep (``ebp_backward_allevents``, bucketed
-and cascaded).  The traced ``inject_spec`` one-hot of the per-probe
-weighted-subtree path waits for ROADMAP item 6.
+Ported: the single walk (``ebp``, ``ebp_backward``, with the traced
+``inject_spec`` one-hot of the per-probe weighted-subtree path),
+``natural_backward`` and the batched prior-injected sweep
+(``ebp_backward_allevents``, bucketed and cascaded).
 
 Eager torch keeps no buffer XLA would have reused or dropped, so the walks
 here (a) free each gradient once its node has consumed it, (b) stop as
@@ -110,27 +110,55 @@ def _check_mode(graph, mode):
                 "supported for EBP" % ev.tag)
 
 
-def _apply_event_rule(ev, mode, z, a, xpos, eps, prior):
+def _inject(ev, p, inject_spec):
+    """The traced one-hot injection over a walk's rows: row r holds
+    (event id, flat element, value) in ``inject_spec``; where its event is
+    ``ev``, its p becomes the one-hot of that value at that element.
+    Returns (p, [rows, 1, ...] presence mask)."""
+    ev_ids, elems, vals = inject_spec
+    bshape = (-1,) + (1,) * (p.ndim - 1)
+    here = (ev_ids == ev.idx).reshape(bshape)
+    iota = torch.arange(p[0].numel(), dtype=elems.dtype,
+                        device=p.device).reshape(p.shape[1:])
+    onehot = torch.where(iota[None] == elems.reshape(bshape),
+                         vals.to(p.dtype).reshape(bshape), 0)
+    return torch.where(here, onehot, p), here
+
+
+def _apply_event_rule(ev, mode, z, a, xpos, eps, prior, inject_spec=None):
     """One tensor-hook firing: compute the MWP p and the rewritten gradient.
-    ``prior`` is a static override tensor (or None)."""
+    ``prior`` is a static override tensor (or None).  ``inject_spec``
+    optionally gives each row a dynamic one-hot override (``_inject``);
+    presence is then per row, a [rows, 1, ...] mask."""
     zh = _relu(z)
     p = a * zh
     has_prior = prior is not None
     if has_prior:
         p = torch.broadcast_to(prior, p.shape).to(p.dtype)
+    if inject_spec is not None:
+        p, here = _inject(ev, p, inject_spec)
+        if not has_prior:
+            has_prior = here
 
     if mode == "affineonly":
         g2 = p / (xpos + eps) if ev.is_affine else z
     elif mode == "affineonly_with_prior":
         # zh/p masked where a prior is present
-        if has_prior:
+        if has_prior is True:
             pm = (p > 0) * p
             zm = (p > 0) * z
-        else:
+        elif has_prior is False:
             pm, zm = p, zh
+        else:
+            pm = torch.where(has_prior, (p > 0) * p, p)
+            zm = torch.where(has_prior, (p > 0) * z, zh)
         g2 = pm / (xpos + eps) if ev.is_affine else zm
     elif mode == "norelu":
-        g2 = z if (ev.is_poolrelu and has_prior) else p / (xpos + eps)
+        g2 = p / (xpos + eps)
+        if ev.is_poolrelu and has_prior is True:
+            g2 = z
+        elif ev.is_poolrelu and has_prior is not False:
+            g2 = torch.where(has_prior, z, g2)
     elif mode == "all":
         g2 = p / (xpos + eps)
     else:
@@ -151,6 +179,7 @@ def ebp_backward(
     with_bias: bool = False,
     keep: Optional[Sequence[int]] = None,
     priors: Optional[Dict[int, torch.Tensor]] = None,
+    inject_spec=None,
     start_node: Optional[int] = None,
     reduce: Optional[Callable[[int, torch.Tensor], torch.Tensor]] = None,
 ) -> Dict[int, torch.Tensor]:
@@ -163,6 +192,10 @@ def ebp_backward(
         ``jax.vmap`` of the JAX walk over cotangents.
       keep: event indices whose MWP to return (default: all).
       priors: static per-event override tensors (reference self.P_prior).
+      inject_spec: (event ids, flat elements, values), one of each per
+        cotangent row: the dynamic one-hot prior of the per-probe
+        weighted-subtree path (the JAX package's traced injection under
+        ``jax.vmap``), each row injected at its own event.
       start_node: begin the walk at this node index instead of the output
         (truncated walk for prior-injected runs with zero cotangent:
         everything above contributes zero gradient, so missing grads are
@@ -199,7 +232,7 @@ def ebp_backward(
             a = _relu(values[at])
             xp = _relu(posvals[xt])
             g, p = _apply_event_rule(ev, subtree_mode, g, a, xp, eps,
-                                     priors.get(ev.idx))
+                                     priors.get(ev.idx), inject_spec)
             if ev.idx in keep_set:
                 out[ev.idx] = p if reduce is None else reduce(ev.idx, p)
         grads[t] = g
