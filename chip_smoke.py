@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Phases, one JSON line each; a failing phase raises, the script exits
-non-zero and prints no result line:
+non-zero and prints no result line.  Each phase is a function of this
+module, so a subset runs as ``python3 -c "import chip_smoke as c;
+c.phase_device(); c.phase_build(); c.phase_lightcnn()"``:
 
   device     the card (torch) and its name and power limit (nvidia-smi)
   build      every CUDA kernel of the path, compiled from xfr_torch/csrc
@@ -64,12 +66,36 @@ non-zero and prints no result line:
              memory, per-method times; the writer normalizes each map as
              create_save_smap does and saves its npz (no PNG: the card's
              machine has no imageio)
+  models_parity  the other matchers on the card and on the CPU, same
+             weights: LightCNN-29 v2 (full widths, 80,013 classes, one
+             block a stage) and ResNet-50-128 in float32, SENet-50-256 and
+             VGG-16 in float64 and in float32 (ill-conditioned in float32
+             at random weights: the card's float32 against the float64
+             CPU within 3 times the CPU's own float32 error); forward, ebp
+             and the contrastive pair, and LightCNN's weighted-subtree
+             top-32 in affineonly_with_prior; SENet's EBP must raise on
+             its Sigmoid
+  lightcnn   the slice's full-width path: create_wbnet("lightcnn") (88
+             events, 80,013 classes) runs the 4-map mix on B=8 random
+             128x128 probes in affineonly_with_prior, bfloat16 sweep, as
+             whitebox runs it (host syncs refused during one mix's
+             launches); then one eval group on a 1x128x128 pair
+  vggface2   the same mix on full ResNet-50-128 (the interleaved [2B, 128]
+             classifier in place of its fc1), norelu
+  variants   layerwise_ebp, the 8 layerwise_contrastive_ebp modes and
+             subtree_ebp on full ResNet-101, timed; the same plus the
+             serial percentile mode card against CPU at one block a
+             stage, in float64 and in float32; STRise's uint8 prior card
+             against CPU
+  eccv20     python -m xfr_torch.cli.eccv20 --figure 3 --subjects 2 on a
+             synthetic JPEG corpus, full LightCNN-29 v2 on the card
 
 The last lines are the card's name and power limit, the "kernels" line
 and {"ok": true, "device": {...}}.
 """
 
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -456,9 +482,10 @@ def phase_breakdown(wb, make, kernel_ms):
 # ---------------------------------------------------------------------------
 
 
-def whitebox_net(device, layers=None, seed=2):
+def whitebox_net(device, layers=None, seed=2, dtype=None):
     """The whitebox matcher: full-depth ResNet-101+L2 from the factory, or
-    one with ``layers`` blocks per stage and the numpy init of ``seed``."""
+    one with ``layers`` blocks per stage and the numpy init of ``seed``
+    (cast to ``dtype`` if given)."""
     from xfr_torch.ebp.engine import Whitebox, WhiteboxNetwork
     from xfr_torch.models import common, create_wbnet
     from xfr_torch.models import resnet101 as R101
@@ -467,7 +494,8 @@ def whitebox_net(device, layers=None, seed=2):
         return create_wbnet("resnetv6_pytorch", device=device)
     graph, shapes, enc = R101.build_resnet101(layers=layers)
     net = WhiteboxNetwork(
-        graph, common.params_to(common.init_params(shapes, seed=seed), device),
+        graph, common.params_to(common.init_params(shapes, seed=seed), device,
+                                dtype=dtype),
         encode_tensor=enc, classifier_pname="fc2", num_classes=65359)
     return Whitebox(net, ebp_version=6, ebp_subtree_mode="norelu")
 
@@ -518,10 +546,24 @@ def subtree_mode(wb, mode):
         wb._ebp_subtree_mode = prev
 
 
-def launch_mix(wb, w, refuse_syncs=False):
+def k1_launches():
+    """K1's launch count so far (every wrapper call that launched it)."""
+    from xfr_torch.blackbox import fused_blend as FB
+
+    return FB.fused_mask_blend_preprocess.launches
+
+
+def check_no_k1(phase, k1):
+    if k1 != 0:
+        raise AssertionError(f"the {phase} path launched K1 {k1} times")
+
+
+def launch_mix(wb, w, refuse_syncs=False, mode="norelu"):
     """Enqueue the 4-map mix as bench.py does: every method's device work
     before any host read; the classifier swaps between launches are safe
-    because each launch takes the params it was given."""
+    because each launch takes the params it was given.  ``mode`` is the
+    weighted subtree's (the net's default: norelu for the ResNets,
+    affineonly_with_prior for LightCNN)."""
     import torch
 
     probes, em, en = w["probes"], w["em"], w["en"]
@@ -537,7 +579,7 @@ def launch_mix(wb, w, refuse_syncs=False):
     wb.set_triplet_classifier_batch(em.expand(B, -1), en.expand(B, -1))
     with host_syncs_refused(refuse_syncs):
         finish_ws = wb.launch_weighted_subtree_ebp_batch(
-            probes, topk=WB_TOPK, subtree_mode="norelu")
+            probes, topk=WB_TOPK, subtree_mode=mode)
     return pooled, finish_ct, finish_ws
 
 
@@ -554,14 +596,14 @@ def drain_mix(wb, launched):
             "subtrees": [r[3] for r in ws]}
 
 
-def check_wb_maps(out):
-    """Every {method: [maps]} entry: 112x112 saliency maps, finite,
-    non-negative, unit mass."""
+def check_wb_maps(out, shape=(112, 112)):
+    """Every {method: [maps]} entry: saliency maps of ``shape`` (the
+    plane of the net's first conv), finite, non-negative, unit mass."""
     for name, maps in out.items():
         if name == "subtrees":
             continue
         for m in maps:
-            assert m.shape == (112, 112), (name, m.shape)
+            assert m.shape == shape, (name, m.shape)
             assert np.isfinite(m).all() and m.min() >= 0, name
             assert abs(float(m.sum(dtype=np.float64)) - 1.0) <= 1e-5, \
                 (name, float(m.sum(dtype=np.float64)))
@@ -616,7 +658,7 @@ def phase_wb_parity():
                              f"shared subtrees {shared}, ties {ties}")
 
 
-def stage_event_ms(wb, w):
+def stage_event_ms(wb, w, mode="norelu"):
     """One mix stage by stage, CUDA events between the stages: stream
     time, which includes any wait for the host."""
     import torch
@@ -636,7 +678,7 @@ def stage_event_ms(wb, w):
                               wb._batch_cotangents(B, "contrastive"), 20.0)
     ev[2].record()
     wb.set_triplet_classifier_batch(em.expand(B, -1), en.expand(B, -1))
-    with subtree_mode(wb, "norelu"):
+    with subtree_mode(wb, mode):
         scores, idxs, vals = wb._wsebp_grad_batch_fn()(wb.net.params, probes,
                                                        True)
         ev[3].record()
@@ -649,7 +691,7 @@ def stage_event_ms(wb, w):
     return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
 
 
-def sweep_launches_per_probe(wb, w):
+def sweep_launches_per_probe(wb, w, mode="norelu"):
     """Kernels and ATen operator calls of one B-probe sweep+select+merge,
     from torch.profiler, per probe; and the sweep's peak memory (the net,
     the probes and the ranking pass's outputs included)."""
@@ -660,7 +702,7 @@ def sweep_launches_per_probe(wb, w):
     probes, em, en = w["probes"], w["em"], w["en"]
     B = probes.shape[0]
     wb.set_triplet_classifier_batch(em.expand(B, -1), en.expand(B, -1))
-    with subtree_mode(wb, "norelu"):
+    with subtree_mode(wb, mode):
         scores, idxs, vals = wb._wsebp_grad_batch_fn()(wb.net.params, probes,
                                                        True)
         sweep = wb._wsebp_sweep_select_scan_fn(WB_TOPK, False)
@@ -683,41 +725,44 @@ def sweep_launches_per_probe(wb, w):
             "peak_mem_bytes": torch.cuda.max_memory_allocated()}
 
 
-def phase_whitebox():
-    """bench.py's whitebox mix on full ResNet-101+L2: B=8, bfloat16 sweep,
-    one warm-up mix with host syncs refused during the launches, then
-    WB_TIMED mixes launched and drained double-buffered."""
+def run_mix(wb, w, mode="norelu", shape=(112, 112), profile=True):
+    """The mix as bench.py runs it: one warm-up mix with host syncs refused
+    during the launches, then WB_TIMED mixes launched and drained
+    double-buffered; then one mix alone, and (``profile``) its stages by
+    CUDA events and the sweep's launches per probe.  Returns the record."""
     import torch
-    from xfr_torch.blackbox import fused_blend as FB
 
+    B = w["probes"].shape[0]
     t0 = time.time()
-    wb = whitebox_net("cuda")
-    wb.wsebp_dtype = torch.bfloat16
-    w = whitebox_workload(wb, WB_B)
-    k1_before = FB.fused_mask_blend_preprocess.launches
-    out = drain_mix(wb, launch_mix(wb, w, refuse_syncs=True))
+    k1_0 = k1_launches()
+    out = drain_mix(wb, launch_mix(wb, w, refuse_syncs=True, mode=mode))
     torch.cuda.synchronize()
     warm_s = time.time() - t0
-    check_wb_maps(out)
+    check_wb_maps(out, shape)
 
+    # the peak is this mix's: nets of earlier phases held in reference
+    # cycles are freed first
+    gc.collect()
     torch.cuda.reset_peak_memory_stats()
+    start_mem = torch.cuda.memory_allocated()
     times, launch_s, drain_s = [], [], []
     t0 = time.time()
     tl = time.time()
-    prev = launch_mix(wb, w)
+    prev = launch_mix(wb, w, mode=mode)
     launch_s.append(time.time() - tl)
     for _ in range(WB_TIMED - 1):
         tl = time.time()
-        st = launch_mix(wb, w)
+        st = launch_mix(wb, w, mode=mode)
         launch_s.append(time.time() - tl)
         td = time.time()
-        check_wb_maps(drain_mix(wb, prev))
+        check_wb_maps(drain_mix(wb, prev), shape)
         drain_s.append(time.time() - td)
         t1 = time.time()
         times.append(t1 - t0)
         t0, prev = t1, st
     td = time.time()
-    check_wb_maps(drain_mix(wb, prev))
+    last = drain_mix(wb, prev)
+    check_wb_maps(last, shape)
     drain_s.append(time.time() - td)
     times.append(time.time() - t0)
     peak = torch.cuda.max_memory_allocated()
@@ -725,26 +770,43 @@ def phase_whitebox():
     # one mix alone: the launch call against the whole mix
     torch.cuda.synchronize()
     t0 = time.time()
-    st = launch_mix(wb, w)
+    st = launch_mix(wb, w, mode=mode)
     one_launch = time.time() - t0
     drain_mix(wb, st)
     one_mix = time.time() - t0
 
-    stages = stage_event_ms(wb, w)
-    sweep = sweep_launches_per_probe(wb, w)
-    k1 = FB.fused_mask_blend_preprocess.launches - k1_before
+    rec = {}
+    if profile:
+        rec["stage_event_ms"] = stage_event_ms(wb, w, mode)
+        rec["sweep"] = sweep_launches_per_probe(wb, w, mode)
+    k1 = k1_launches() - k1_0
     wb.net.reset_classifier()
     # as in bench.py, interval i ends with mix i's drain while mix i+1 is
     # queued; the intervals add up to the WB_TIMED mixes
-    emit("whitebox", batch=WB_B, maps_per_mix=4 * WB_B, mixes=WB_TIMED,
-         interval_s=times, maps_per_s=4 * WB_B * WB_TIMED / sum(times),
-         warmup_s=warm_s, peak_mem_bytes=peak, launch_s=launch_s,
-         drain_s=drain_s, one_mix={"launch_s": one_launch,
-                                   "mix_s": one_mix},
-         stage_event_ms=stages, sweep=sweep, wsebp_dtype="bfloat16",
-         k1_launches=k1)
-    if k1 != 0:
-        raise AssertionError(f"the whitebox mix launched K1 {k1} times")
+    rec.update(batch=B, maps_per_mix=4 * B, mixes=WB_TIMED,
+               interval_s=times, maps_per_s=4 * B * WB_TIMED / sum(times),
+               warmup_s=warm_s, peak_mem_bytes=peak,
+               start_mem_bytes=start_mem, launch_s=launch_s,
+               drain_s=drain_s, one_mix={"launch_s": one_launch,
+                                         "mix_s": one_mix},
+               subtree_mode=mode, subtrees_selected=[
+                   len(k) for k in last["subtrees"]],
+               wsebp_dtype=str(wb.wsebp_dtype).replace("torch.", ""),
+               k1_launches=k1)
+    check_no_k1("whitebox mix", k1)
+    return rec
+
+
+def phase_whitebox():
+    """bench.py's whitebox mix on full ResNet-101+L2: B=8, bfloat16 sweep,
+    one warm-up mix with host syncs refused during the launches, then
+    WB_TIMED mixes launched and drained double-buffered."""
+    import torch
+
+    wb = whitebox_net("cuda")
+    wb.wsebp_dtype = torch.bfloat16
+    w = whitebox_workload(wb, WB_B)
+    emit("whitebox", **run_mix(wb, w))
     return wb, w
 
 
@@ -784,17 +846,19 @@ def phase_wsebp_bf16(wb, w):
 # ---------------------------------------------------------------------------
 
 
-def eval_workload(wb, seed=0, percentiles=EVAL_PCT):
+def eval_workload(wb, seed=0, percentiles=EVAL_PCT, chw=(3, SIZE, SIZE)):
     """bench.py's eval inputs: 2 probe/twin pairs (probe 0..50, twin =
     probe + 0..30), galleries of 2 noisy copies each (unit-normed mean
     encodings from ``wb``), 4 saliency maps with the salient box
     [60:120, 80:150] and the same ground-truth box; percent-density,
-    seed 7, zero elements excluded."""
+    seed 7, zero elements excluded.  ``chw`` is the net's input shape; the
+    box scales with it."""
     rng = np.random.RandomState(seed)
+    C, H, W = chw
     pairs = []
     for _ in range(2):
-        orig = (rng.rand(3, SIZE, SIZE) * 50).astype(np.float32)
-        inp = orig + (rng.rand(3, SIZE, SIZE) * 30).astype(np.float32)
+        orig = (rng.rand(C, H, W) * 50).astype(np.float32)
+        inp = orig + (rng.rand(C, H, W) * 30).astype(np.float32)
         pairs.append((orig, inp))
 
     def embed(ims):
@@ -803,18 +867,20 @@ def eval_workload(wb, seed=0, percentiles=EVAL_PCT):
         m = e.mean(axis=0, keepdims=True)
         return m / np.linalg.norm(m, axis=1, keepdims=True)
 
-    gals = [(embed([o + rng.rand(3, SIZE, SIZE).astype(np.float32)
+    gals = [(embed([o + rng.rand(C, H, W).astype(np.float32)
                     for _ in range(2)]),
-             embed([i + rng.rand(3, SIZE, SIZE).astype(np.float32)
+             embed([i + rng.rand(C, H, W).astype(np.float32)
                     for _ in range(2)]))
             for o, i in pairs]
+    box = (slice(60 * H // SIZE, 120 * H // SIZE),
+           slice(80 * W // SIZE, 150 * W // SIZE))
     smaps = []
     for _ in range(EVAL_MAPS):
-        smap = rng.rand(SIZE, SIZE)
-        smap[60:120, 80:150] += 4.0
+        smap = rng.rand(H, W)
+        smap[box] += 4.0
         smaps.append(smap / smap.sum())
-    gt = np.zeros((SIZE, SIZE), bool)
-    gt[60:120, 80:150] = True
+    gt = np.zeros((H, W), bool)
+    gt[box] = True
     return {"pairs": pairs, "gals": gals, "smaps": smaps, "gt": gt,
             "kw": dict(mask_threshold_method="percent-density",
                        percentiles=percentiles, seed=7,
@@ -1346,6 +1412,502 @@ def phase_generate():
         raise AssertionError(f"BBPipeline maps against evaluate(): {bb_rec}")
 
 
+# ---------------------------------------------------------------------------
+# The other matchers and the rest of the whitebox API
+# ---------------------------------------------------------------------------
+
+VARIANT_LWC_MODES = ("copy", "mean", "product", "argmax", "argmax_product",
+                     "percentile", "percentile_argmax", "elementwise")
+
+
+def parity_net(name):
+    """One matcher of models_parity, built once on the CPU from the numpy
+    init of seed 7: (graph, params, encode tensor, classifier name,
+    classes, subtree mode, input CHW, compute dtypes).
+
+    SENet-50-256 and VGG-16 are compared in float64 first: at these
+    random weights their float32 results are ill-conditioned.  SENet's SE
+    gates take sigmoids of 1x1 convolutions of pooled activations near
+    1e3, which cancel: its float32 embedding lies 12-17% of its max from
+    float64 on the CPU alone.  VGG-16's float32 EBP map lies 1.0e-3 of its
+    max from float64 on the CPU."""
+    from xfr_torch.models import common
+    from xfr_torch.models import lightcnn as LCNN
+    from xfr_torch.models import vggface as VGG
+    from xfr_torch.models import vggface2 as VF2
+
+    import torch
+
+    f32, f64 = (torch.float32,), (torch.float64, torch.float32)
+    if name == "lightcnn":
+        built = LCNN.build_lightcnn29v2(layers=(1, 1, 1, 1))
+        rest = ("fc2", 80013, "affineonly_with_prior", (1, 128, 128), f32)
+    elif name == "resnet50_128":
+        built = VF2.build_resnet50_128()
+        rest = ("fc1", 2, "norelu", (3, SIZE, SIZE), f32)
+    elif name == "senet50_256":
+        built = VF2.build_senet50_256()
+        rest = ("fc1", 2, "norelu", (3, SIZE, SIZE), f64)
+    else:
+        built = VGG.build_vgg16()
+        rest = ("fc8", 2622, "norelu", (3, SIZE, SIZE), f64)
+    graph, shapes, enc = built
+    return (graph, common.init_params(shapes, seed=7), enc) + rest
+
+
+def parity_outputs(name, wb, x, nc, triplet):
+    """models_parity's results of one matcher on one device and dtype:
+    embedding, logits, ebp (or whether it raised), the contrastive pair
+    and, for LightCNN, weighted-subtree top-32 under ``triplet``."""
+    import torch
+    from xfr_torch.utils.device import precision_scope
+
+    with precision_scope("high"):
+        o = {"embedding": wb.net.encode(x).double().cpu().numpy(),
+             "logits": wb.net.classify(x).double().cpu().numpy()}
+    if name == "senet50_256":
+        try:
+            wb.ebp(x, np.eye(nc, dtype=np.float32)[:1])
+            o["ebp_raises"] = False
+        except ValueError as e:
+            o["ebp_raises"] = "special case" in str(e)
+    else:
+        o["ebp"] = wb.ebp(x, np.eye(nc, dtype=np.float32)[:1], mwp=True)
+    if name in ("lightcnn", "resnet50_128"):
+        o["contrastive"] = wb.contrastive_ebp(x, 0, 1)
+        o["truncated_contrastive"] = wb.truncated_contrastive_ebp(
+            x, 0, 1, percentile=20)
+    if name == "lightcnn":
+        wb.net.set_triplet_classifier(*(t.to(x) for t in triplet))
+        s, _, sc, k = wb.weighted_subtree_ebp(
+            x, 0, 1, topk=WB_TOPK, subtree_mode=wb.ebp_subtree_mode(),
+            return_subtree_maps=False)
+        wb.net.reset_classifier()
+        o["weighted_subtree"] = (s, k, sc)
+    if x.is_cuda:
+        torch.cuda.synchronize()
+    return o
+
+
+def phase_models_parity():
+    """The four other matchers on the card and on the CPU with the same
+    numpy weights and input (TF32 off): LightCNN-29 v2 at full widths and
+    80,013 classes, one block a stage, and ResNet-50-128 whole, in
+    float32; SENet-50-256 and VGG-16 whole, in float64 and in float32
+    (see parity_net).  Float32: embedding and logits within 1e-4 of their
+    largest entry, ebp's channel-pooled map (class 0) within 1e-3 of its
+    max, the contrastive pair (classes 0 and 1) at correlation >= 0.999
+    (wb_parity's limits); LightCNN's weighted-subtree top-32 in its
+    affineonly_with_prior mode, float32 sweep, under one triplet
+    classifier encoded on the CPU: the same subtrees, scores at rtol 1e-4,
+    maps within 1e-4 of their max (wsebp_parity's check).  Float64:
+    embedding and logits within 1e-7 (SENet's cancelling gates read
+    2.6e-9 there), the EBP map (float32 out, as every EBP program casts
+    it) within 1e-6.  SENet-50-256 and VGG-16 in float32: the card's
+    results against the float64 CPU's, within 3 times the CPU's own
+    float32 error and at least the float32 limits above.  VGG-16: encode
+    and one EBP.  SENet: encode, and its EBP must raise on the Sigmoid."""
+    import torch
+    from xfr_torch.ebp.engine import Whitebox, WhiteboxNetwork
+    from xfr_torch.models import common
+
+    def err(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    f32, f64 = torch.float32, torch.float64
+    rec, ok = {}, True
+    k1_0 = k1_launches()
+    for name in ("lightcnn", "resnet50_128", "senet50_256", "vgg16"):
+        graph, params, enc, cls, nc, mode, chw, dts = parity_net(name)
+        x = np.random.RandomState(3).rand(1, *chw).astype(np.float32)
+        if chw[0] == 3:
+            x *= 50
+        out, secs, triplet = {}, {}, None
+        for dt in dts:
+            for dev in ("cpu", "cuda"):  # the CPU encodes the triplet
+                wb = Whitebox(WhiteboxNetwork(
+                    graph, common.params_to(params, dev, dtype=dt),
+                    encode_tensor=enc, classifier_pname=cls, num_classes=nc),
+                    ebp_version=6, ebp_subtree_mode=mode)
+                xd = torch.from_numpy(x).to(device=dev, dtype=dt)
+                if name == "lightcnn" and triplet is None:
+                    e = wb.net.encode(torch.as_tensor(
+                        np.random.RandomState(11).rand(2, *chw), dtype=dt))
+                    triplet = (e[0] / e[0].norm(), e[1] / e[1].norm())
+                t0 = time.time()
+                out[dev, dt] = parity_outputs(name, wb, xd, nc, triplet)
+                secs[dev, dt] = time.time() - t0
+                del wb
+        r = {"nodes": len(graph.nodes), "events": graph.n_events,
+             "classes": nc, "input": list(chw), "cuda_s": secs["cuda", f32],
+             "cpu_s": secs["cpu", f32],
+             "dtype": str(dts[0]).replace("torch.", "")}
+        for k, a in out["cuda", dts[0]].items():
+            b = out["cpu", dts[0]][k]
+            if k == "ebp_raises":
+                r[k] = bool(a and b)
+                ok &= r[k]
+            elif "contrastive" in k:
+                r[k + "_corr"] = float(np.corrcoef(a.ravel(), b.ravel())[0, 1])
+                ok &= r[k + "_corr"] >= 0.999
+            elif k == "weighted_subtree":
+                (s_c, k_c, sc_c), (s_p, k_p, sc_p) = a, b
+                w = {"selected": len(k_c), "same_subtrees": k_c == k_p}
+                if k_c == k_p:
+                    w["map_err_rel_to_max"] = err(s_c, s_p)
+                    w["score_max_rel_err"] = float(np.max(
+                        np.abs(np.subtract(sc_c, sc_p))
+                        / np.maximum(np.abs(sc_p), 1e-30)))
+                ok &= (k_c == k_p and w["map_err_rel_to_max"] <= 1e-4
+                       and w["score_max_rel_err"] <= 1e-4)
+                r[k] = w
+            else:
+                r[k + "_err_rel_to_max"] = err(a, b)
+                lim = {(True, True): 1e-6, (True, False): 1e-7,
+                       (False, True): 1e-3, (False, False): 1e-4}
+                ok &= (np.isfinite(a).all()
+                       and err(a, b) <= lim[dts[0] == f64, k == "ebp"])
+        if dts[0] == f64:
+            # float32 on the card against float64 on the CPU
+            r["float32"] = {}
+            for k, ref in out["cpu", f64].items():
+                if k == "ebp_raises":
+                    continue
+                cpu_err = err(out["cpu", f32][k], ref)
+                lim = max(1e-3 if k == "ebp" else 1e-4, 3 * cpu_err)
+                r["float32"][k] = {
+                    "err_rel_to_max": err(out["cuda", f32][k], ref),
+                    "cpu_err_rel_to_max": cpu_err, "limit": lim}
+                ok &= (np.isfinite(out["cuda", f32][k]).all()
+                       and r["float32"][k]["err_rel_to_max"] <= lim)
+        rec[name] = r
+    emit("models_parity", nets=rec, precision="high",
+         tol={"float32": {"embedding_logits_err_rel_to_max": 1e-4,
+                          "ebp_err_rel_to_max": 1e-3,
+                          "contrastive_corr_min": 0.999,
+                          "weighted_subtree_map_err_rel_to_max": 1e-4,
+                          "weighted_subtree_score_rtol": 1e-4},
+              "float64": {"embedding_logits_err_rel_to_max": 1e-7,
+                          "ebp_err_rel_to_max": 1e-6},
+              "float32_against_float64": "max(the float32 limit, 3 x the "
+                                         "CPU's float32 error)"},
+         k1_launches=k1_launches() - k1_0)
+    check_no_k1("models_parity", k1_launches() - k1_0)
+    if not ok:
+        raise AssertionError(f"other matchers: card and CPU disagree: {rec}")
+
+
+def lightcnn_workload(wb, B, seed=0):
+    """B random 128x128 RGB probes in [0, 1] through
+    preprocess_lightcnn_batch on the card, and the triplet encodings:
+    unit-normed mean encodings of two mates and two nonmates made alike."""
+    import torch
+    from xfr_torch.models.lightcnn import preprocess_lightcnn_batch
+
+    g = torch.Generator(device=wb.device).manual_seed(seed)
+
+    def imgs(n):
+        return preprocess_lightcnn_batch(torch.rand(
+            (n, 128, 128, 3), generator=g, device=wb.device))
+
+    mates, nonmates = imgs(2), imgs(2)
+    em, en = (e / e.norm() for e in (wb.encode(mates).mean(0),
+                                     wb.encode(nonmates).mean(0)))
+    return {"probes": imgs(B), "em": em, "en": en}
+
+
+def run_eval_group(wb, chw):
+    """One TwinClsBatch group (4 maps x 101 percentiles on one probe/twin
+    pair of ``chw``) after a warm-up group with host syncs refused during
+    its launches and flush: its wall time, evals/s and peak memory."""
+    import torch
+
+    w = eval_workload(wb, chw=chw)
+    drain_eval_group(launch_eval_group(wb, w, 0, refuse_syncs=True))
+    torch.cuda.synchronize()
+    wb._upload_memo.clear()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    g = launch_eval_group(wb, w, 1)
+    launch_s = time.time() - t0
+    drain_eval_group(g)
+    group_s = time.time() - t0
+    return {"maps": EVAL_MAPS, "percentiles": len(EVAL_PCT),
+            "input": list(chw), "launch_s": launch_s, "group_s": group_s,
+            "evals_per_s": EVAL_MAPS / group_s,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+
+def phase_lightcnn():
+    """The slice's full-width path: create_wbnet("lightcnn") on the card
+    (LightCNN-29 v2, layers (1,2,3,4), 80,013 classes, 88 events) runs the
+    generation CLI's 4-map mix on B=8 random 128x128 probes in its
+    affineonly_with_prior mode (bfloat16 sweep, float32 contrastive), as
+    phase_whitebox runs it; then one eval group on a 1x128x128 pair."""
+    import torch
+    from xfr_torch.models import create_wbnet
+
+    t0 = time.time()
+    wb = create_wbnet("lightcnn", device="cuda")
+    net_s = time.time() - t0
+    graph = wb.net.graph
+    n_params = sum(v.numel() for p in wb.net.params.values()
+                   for v in p.values())
+    if (wb.net.num_classes(), graph.n_events) != (80013, 88):
+        raise AssertionError("LightCNN-29 v2: %d classes, %d events" % (
+            wb.net.num_classes(), graph.n_events))
+    wb.wsebp_dtype = torch.bfloat16
+    k1_0 = k1_launches()
+    mix = run_mix(wb, lightcnn_workload(wb, WB_B),
+                  mode=wb.ebp_subtree_mode(), shape=(128, 128))
+    ev = run_eval_group(wb, (1, 128, 128))
+    k1 = k1_launches() - k1_0
+    emit("lightcnn", net="lightcnn", net_s=net_s, nodes=len(graph.nodes),
+         events=graph.n_events, classes=wb.net.num_classes(),
+         params=n_params, mix=mix, eval_group=ev, k1_launches=k1)
+    check_no_k1("LightCNN", k1)
+
+
+def phase_vggface2():
+    """The same mix on full VGGFace2 ResNet-50-128 (its 2-class fc1
+    replaced by the interleaved [2B, 128] triplet classifier), norelu,
+    B=8, bfloat16 sweep, float32 contrastive."""
+    import torch
+    from xfr_torch.models import create_wbnet
+
+    t0 = time.time()
+    wb = create_wbnet("vggface2_resnet50", device="cuda")
+    net_s = time.time() - t0
+    wb.wsebp_dtype = torch.bfloat16
+    mix = run_mix(wb, whitebox_workload(wb, WB_B),
+                  mode=wb.ebp_subtree_mode())
+    emit("vggface2", net="vggface2_resnet50", net_s=net_s,
+         nodes=len(wb.net.graph.nodes), events=wb.net.graph.n_events,
+         mix=mix)
+
+
+def variant_calls(wb, x, k_layer, k_element, percentile_mode=False):
+    """name -> zero-argument call of each method of the rest of the
+    whitebox API on probe ``x``, classes 0 (mate) and 1 (nonmate)."""
+    calls = {"layerwise_ebp_argmax": lambda: wb.layerwise_ebp(
+        x, k_layer=k_layer, mode="argmax", k_poschannel=0)}
+    for m in VARIANT_LWC_MODES:
+        calls["layerwise_contrastive_" + m] = \
+            lambda m=m: wb.layerwise_contrastive_ebp(
+                x, 0, 1, k_layer=k_layer, mode=m, percentile=80,
+                k_element=k_element)
+    for topk in (1, 8):
+        calls["subtree_percentile_argmax_top%d" % topk] = \
+            lambda topk=topk: wb.subtree_ebp(x, 0, 1, topk=topk)
+    if percentile_mode:
+        calls["subtree_percentile_top8"] = lambda: wb.subtree_ebp(
+            x, 0, 1, mode="percentile", topk=8)
+    return calls
+
+
+def _variant_map(res):
+    """(map, selection or None) of a variant call's result."""
+    if isinstance(res, tuple):
+        return np.asarray(res[0], np.float32), (list(res[2]), list(res[1]))
+    return np.asarray(res, np.float32), None
+
+
+def phase_variants():
+    """The rest of the whitebox API on one probe: on full ResNet-101
+    ("resnetv4_pytorch") layerwise_ebp, the 8 layerwise_contrastive_ebp
+    modes at event 38 (a Conv2d event: at event 37, a ReLU, the norelu
+    mode passes the zero incoming gradient and drops the prior, so every
+    map is zero, as in the JAX package's goldens) and subtree_ebp
+    (percentile_argmax, top 1 and 8), each called once to warm up, then
+    timed, every map non-zero; at one block a stage the same calls at
+    event 37 (a BatchNorm there) plus subtree_ebp(mode="percentile") on
+    the card and on the CPU, same weights, in float64 and in float32.
+    Float64: the same selections, scores at rtol 1e-9, maps within 1e-6
+    of their max (maps come out in float32).  Float32: the card's maps
+    within 1e-4 of the float64 CPU maps' max, and the same selections and
+    scores at rtol 1e-4 as the float32 CPU's (float32 against float64,
+    the selections may order equal scores otherwise).  The CPU's own
+    float32 error is recorded beside, and the number of the stem max
+    pool's windows whose first maximum lies elsewhere in float32 than in
+    float64, on each device.  Then STRise's uint8 prior (ebp_version 5)
+    on the card against the CPU, within 2 uint8 steps of its max."""
+    import torch
+    import torch.nn.functional as F
+    from xfr_torch.blackbox.strise import STRise
+    from xfr_torch.ebp.engine import Whitebox
+    from xfr_torch.models import create_wbnet
+    from xfr_torch.utils.device import precision_scope
+
+    warnings.filterwarnings("ignore", message=".*is deprecated.*")
+    k1_0 = k1_launches()
+    rng = np.random.RandomState(5)
+    x = torch.as_tensor(rng.rand(1, 3, SIZE, SIZE) * 50, dtype=torch.float32)
+
+    def peak_element(wb, xd, k):
+        P = wb._ebp_raw_fn((k,))(wb.net.params, xd, wb._onehot(0))[k]
+        return int(P.reshape(-1).argmax())
+
+    # full depth, the card alone
+    wb = create_wbnet("resnetv4_pytorch", device="cuda")
+    xc = x.cuda()
+    k_full = 38
+    k_el = peak_element(wb, xc, k_full)
+    full = {}
+    for name, call in variant_calls(wb, xc, k_full, k_el).items():
+        call()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        m, sel = _variant_map(call())
+        full[name] = {"s": time.time() - t0, "max": float(m.max())}
+        if sel is not None:
+            full[name]["subtrees"] = sel[0]
+        if not np.isfinite(m).all() or m.min() < 0 or not m.max() > 0:
+            raise AssertionError(f"variant {name}: bad map {full[name]}")
+    event_tag = wb.net.graph.events[k_full].tag
+    del wb
+
+    # reduced depth, card against CPU, float64 first so that the float32
+    # card times are taken warm
+    f32, f64 = torch.float32, torch.float64
+    wbs = {(dev, dt): whitebox_net(dev, layers=(1, 1, 1, 1), dtype=dt)
+           for dt in (f64, f32) for dev in ("cuda", "cpu")}
+    k_el = peak_element(wbs["cpu", f32], x, 37)
+    res, secs = {}, {}
+    for (dev, dt), wb in wbs.items():
+        xd = x.to(device=dev, dtype=dt)
+        for name, call in variant_calls(wb, xd, 37, k_el,
+                                        percentile_mode=True).items():
+            t0 = time.time()
+            res[dev, dt, name] = _variant_map(call())
+            secs[dev, dt, name] = time.time() - t0
+
+    def map_err(a, b):
+        return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+    def score_err(a, b):
+        return float(np.max(np.abs(np.subtract(a, b))
+                            / np.maximum(np.abs(b), 1e-30)))
+
+    reduced, ok = {}, True
+    for (dev, dt, name), (m_c, sel_c) in res.items():
+        if (dev, dt) != ("cuda", f32):
+            continue
+        (m64c, sel64c), (m64p, sel64p), (m_p, sel_p) = (
+            res["cuda", f64, name], res["cpu", f64, name],
+            res["cpu", f32, name])
+        r = {"float64_map_err_rel_to_max": map_err(m64c, m64p),
+             "float32_map_err_rel_to_max": map_err(m_c, m64p),
+             "cpu_float32_map_err_rel_to_max": map_err(m_p, m64p),
+             "cuda_s": secs["cuda", f32, name],
+             "cpu_s": secs["cpu", f32, name]}
+        good = (r["float64_map_err_rel_to_max"] <= 1e-6
+                and r["float32_map_err_rel_to_max"] <= 1e-4)
+        if sel_c is not None:
+            r["subtrees"] = sel_c[0]
+            r["same_subtrees"] = (sel64c[0] == sel64p[0]
+                                  and sel_c[0] == sel_p[0])
+            r["float64_score_max_rel_err"] = score_err(sel64c[1], sel64p[1])
+            r["float32_score_max_rel_err"] = score_err(sel_c[1], sel_p[1])
+            good &= (r["same_subtrees"]
+                     and r["float64_score_max_rel_err"] <= 1e-9
+                     and r["float32_score_max_rel_err"] <= 1e-4)
+        r["ok"] = bool(good)
+        ok &= good
+        reduced[name] = r
+
+    # why float32 maps stand further from float64 on the card than on the
+    # CPU: the stem's 3x3 max pool routes each window's MWP to its first
+    # maximum, and a near-tie within float32 rounding may lie elsewhere
+    def first_max(dev, dt):
+        wb = wbs[dev, dt]
+        node = next(n for n in wb.net.graph.nodes if n.op == "maxpool2d")
+        a = node.attrs_dict
+        with precision_scope("high"):
+            values = wb._capture(wb.net.params, x.to(device=dev, dtype=dt))[1]
+        return F.max_pool2d(values[node.ins[0]], a["kernel"], a["stride"],
+                            a["padding"], ceil_mode=a["ceil_mode"],
+                            return_indices=True)[1].cpu()
+
+    idx64 = first_max("cpu", f64)
+    maxpool_moved = {"windows": idx64.numel(), **{
+        dev + "_float32": int((first_max(dev, f32) != idx64).sum())
+        for dev in ("cuda", "cpu")}}
+
+    # STRise's uint8 mean-EBP prior, reduced depth, card against CPU
+    probe, ref, gal = _images(6, 3)
+    priors = {}
+    for dev in ("cuda", "cpu"):
+        wb = wbs[dev, f32]
+        wb5 = Whitebox(wb.net, ebp_version=5, ebp_subtree_mode="norelu")
+        st = STRise(probe=probe, refs=[ref], gallery=[gal],
+                    black_box="resnetv6_pytorch", device=dev,
+                    net_dict={("resnetv4_pytorch", None): wb5})
+        st.mean_ebp_prior()
+        priors[dev] = st.prior.cpu().numpy()
+    pmax = float(np.abs(priors["cpu"]).max())
+    prior_err = float(np.abs(priors["cuda"] - priors["cpu"]).max())
+    ok &= prior_err <= 2 * pmax / 255 and pmax > 100
+    emit("variants", k_layer={"full": k_full, "full_tag": event_tag,
+                              "reduced": 37}, classes=[0, 1],
+         full_depth=full, reduced_depth=reduced,
+         stem_maxpool_windows_moved_from_float64=maxpool_moved,
+         uint8_prior={"max_abs_diff": prior_err, "max": pmax,
+                      "shape": list(priors["cuda"].shape)},
+         tol={"float64_map_err_rel_to_max": 1e-6,
+              "float32_map_err_rel_to_max": 1e-4,
+              "float64_score_rtol": 1e-9, "float32_score_rtol": 1e-4,
+              "uint8_prior_abs": "2 uint8 steps of its max"},
+         k1_launches=k1_launches() - k1_0)
+    check_no_k1("variants", k1_launches() - k1_0)
+    if not ok:
+        raise AssertionError(f"variants: card and CPU disagree: {reduced}, "
+                             f"uint8 prior {prior_err} of {pmax}")
+
+
+def phase_eccv20():
+    """python -m xfr_torch.cli.eccv20 --figure 3 --subjects 2 on a
+    synthetic 4-subject JPEG directory: full LightCNN-29 v2 on the card
+    (ebp_version 5, affineonly_with_prior), every method; the six montages
+    must exist with their grid's size."""
+    import os
+    import tempfile
+
+    import PIL.Image
+    from xfr_torch.cli import eccv20
+
+    tmp = tempfile.TemporaryDirectory()
+    data, out = (os.path.join(tmp.name, d) for d in ("data", "out"))
+    os.makedirs(out)
+    rng = np.random.RandomState(1)
+    for sid in range(4):
+        d = os.path.join(data, "s%02d" % sid)
+        os.makedirs(d)
+        base = (rng.rand(260, 260, 3) * 60 + 40).astype(np.uint8)
+        base = np.roll(base, sid, axis=2)
+        base[40 + 30 * sid:100 + 30 * sid, 60:200, sid % 3] = 240
+        base[150:200, 40 + 40 * sid:90 + 40 * sid] = 30 + 60 * sid
+        for k in range(3):
+            img = np.clip(base.astype(int) + rng.randint(-10, 10, base.shape),
+                          0, 255).astype(np.uint8)
+            PIL.Image.fromarray(img).save(os.path.join(d, "im%d.jpg" % k))
+    k1_0 = k1_launches()
+    t0 = time.time()
+    outs = eccv20.main(["--dataset", data, "--output", out, "--figure", "3",
+                        "--subjects", "2"])
+    secs = time.time() - t0
+    k1 = k1_launches() - k1_0
+    want = {"figure3%s_2.jpg" % c: (3 * 113, (6 if c == "f" else 3) * 113)
+            for c in "abcdef"}
+    sizes = {os.path.basename(f): PIL.Image.open(f).size for f in outs}
+    tmp.cleanup()
+    emit("eccv20", figure=3, subjects=2, net="lightcnn", s=secs,
+         files=sizes, k1_launches=k1)
+    check_no_k1("eccv20", k1)
+    if sizes != want:
+        raise AssertionError(f"eccv20 montages {sizes}, expected {want}")
+
+
 def main():
     import torch
 
@@ -1377,12 +1939,18 @@ def main():
     phase_eval()
     phase_wsebp_parity()
     phase_generate()
+    phase_models_parity()
+    phase_lightcnn()
+    phase_vggface2()
+    phase_variants()
+    phase_eccv20()
     emit("done", seconds=time.time() - t_start)
     print(smi, flush=True)
     print(json.dumps({"kernels": [k1]}), flush=True)
-    print(json.dumps({"ok": True, "device": {
+    result = {"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": torch.cuda.device_count()}}
+    print(json.dumps(result), flush=True)
     return 0
 
 

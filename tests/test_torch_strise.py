@@ -253,8 +253,10 @@ def test_entry_points_refuse_missing_card_and_mesh(nets):
                                {"fc.weight": np.zeros(2)})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         preprocess_resnet101(np.zeros((8, 8, 3), np.uint8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_wbnet("lightcnn", device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_wbnet("lightcnn")
+    with pytest.raises(NotImplementedError, match="does not implement"):
+        create_wbnet("no_such_net", device="cpu")
     from xfr_torch.cli import run_eval
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_eval.main(["--cache-dir", os.devnull, "--net",
@@ -265,7 +267,10 @@ def test_port_imports_no_jax():
     code = ("import sys, xfr_torch.blackbox.strise, xfr_torch.models, "
             "xfr_torch.kernels, xfr_torch.blackbox.fused_blend, "
             "xfr_torch.inpainting_game.analysis, xfr_torch.show, "
-            "xfr_torch.cli.run_eval, xfr_torch.cli.hiding_game; "
+            "xfr_torch.cli.run_eval, xfr_torch.cli.hiding_game, "
+            "xfr_torch.models.lightcnn, xfr_torch.models.vggface2, "
+            "xfr_torch.models.vggface, xfr_torch.models.checkpoint, "
+            "xfr_torch.cli.eccv20; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'xfr_tpu')]; "
             "assert not bad, bad")

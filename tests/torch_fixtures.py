@@ -70,3 +70,36 @@ def torch_twin(jax_wb, dtype=None, with_bias=None):
     wb.match_threshold = jax_wb.match_threshold
     wb.platts_scaling = jax_wb.platts_scaling
     return wb
+
+
+def twin_graph(jgraph):
+    """The port's GraphDef over the nodes of a JAX package graph (the
+    event schedule is the port's own, derived from the same nodes)."""
+    import dataclasses
+
+    from xfr_torch.graph import GraphDef, Node
+
+    return GraphDef([Node(**dataclasses.asdict(n)) for n in jgraph.nodes],
+                    jgraph.n_tensors, jgraph.input_id, jgraph.output_id,
+                    name=jgraph.name)
+
+
+def twin_whitebox(jax_wb, dtype=None, graph=None, ebp_version=None,
+                  preprocess=None, **wb_kw):
+    """The port's Whitebox over a JAX Whitebox's net (its graph's nodes,
+    or ``graph``, and its parameters) on the CPU, with the JAX engine's
+    subtree mode, eps, ebp version and calibration, and ``preprocess``."""
+    jnet = jax_wb.net
+    net = WhiteboxNetwork(
+        graph or twin_graph(jnet.graph),
+        params_from_jax(jax_params_np(jnet.params, dtype), device="cpu"),
+        encode_tensor=jnet.encode_tensor,
+        classifier_pname=jnet.classifier_pname,
+        num_classes=jnet.num_classes(), preprocess=preprocess,
+        embed_dim=jnet.embed_dim, name=jnet.name)
+    wb = Whitebox(net, ebp_version=ebp_version or jax_wb.ebp_ver,
+                  ebp_subtree_mode=jax_wb.ebp_subtree_mode(),
+                  eps=jax_wb.eps, **wb_kw)
+    wb.match_threshold = jax_wb.match_threshold
+    wb.platts_scaling = jax_wb.platts_scaling
+    return wb

@@ -15,8 +15,7 @@ in plain PyTorch.  The JAX package's ``lax.scan`` over chunks is a Python
 loop here; every chunk is enqueued on the device stream without a host
 sync until the drain.
 
-Not ported yet: the uint8 prior (``ebp_version != 6``) and
-``save_gallery``/``plot_gallery``.
+Not ported yet: ``save_gallery``/``plot_gallery``.
 """
 
 from __future__ import annotations
@@ -201,15 +200,18 @@ class STRise:
         if not self.mean_ebp_net:
             self.mean_ebp_net = self._get_net("resnetv4_pytorch")
         wb = self.mean_ebp_net
-        if wb.convert_saliency_uint8:
-            raise NotImplementedError(
-                "the uint8 mean-EBP prior (ebp_version != 6) is not ported "
-                "yet")
         from xfr_torch.models.resnet101 import preprocess_resnet101_batch
         probe = preprocess_resnet101_batch(self._tensor(self.probe)[None])
         n = wb.net.num_classes()
         Pn = torch.full((1, n), 1.0 / n, dtype=torch.float32,
                         device=self.device)
+        if wb.convert_saliency_uint8:
+            # the uint8-quantized saliency (ebp_version != 6) keeps the
+            # host PIL conversion of wb.ebp, then resizes on the device
+            P = wb.ebp(probe, Pn)
+            self.prior = M.resize_bilinear(self._tensor(P.astype(np.float32)),
+                                           (224, 224))
+            return
         # pooled MWP -> gaussian blur -> normalize -> resize, on device
         pooled, _ = wb._ebp_pooled_fn()(wb.net.params, probe, Pn)
         P = M.gaussian_blur(pooled.squeeze().float(), 2.0)

@@ -13,8 +13,11 @@ the last over the traced-injection walk); plus ``_mwp_to_saliency``,
 game, batched and serial.  The inpainting game's evaluation stage adds the
 blend+encode family: threshold-mask blends of a probe toward its twin,
 built and encoded on the card (bit-packed masks, the monotone enter-count
-plane, several maps of one pair, several pairs).  The layerwise methods
-and ``subtree_ebp`` wait for ROADMAP queue 1, item 6.
+plane, several maps of one pair, several pairs).  The rest of the API
+came last: ``layerwise_ebp``, the deprecated
+``layerwise_contrastive_ebp`` with its 8 prior modes, ``_prior_ebp``
+(the walk under static per-event priors), and the deprecated engine's
+``subtree_ebp`` in both percentile modes.
 
 The JAX package jits each program; here each ``_*_fn`` method returns a
 plain function that enqueues its work on the current stream, and a
@@ -379,6 +382,37 @@ class Whitebox:
         return lambda params, x, Pns, percentile: pair(
             params, x, Pns, percentile)[0][0]
 
+    def _ebp_raw_fn(self, keep):
+        """(params, x, Pn) -> {event: P float32} for the ``keep`` events of
+        one walk: one row of ``_ebp_multi_cotangent_fn``."""
+        multi = self._ebp_multi_cotangent_fn(keep)
+        return lambda params, x, Pn: {
+            k: v[0] for k, v in multi(params, x, Pn[None]).items()}
+
+    def _ebp_multi_cotangent_fn(self, keep, reduce=None):
+        """(params, x, Pns [k,1,K]) -> {event: P [k, ...] float32}: k walks
+        sharing one forward capture, as the k rows of one walk (the JAX
+        package's vmap over cotangents), in the compute dtype with TF32
+        off.  With ``reduce``, each kept event's P (compute dtype) is
+        handed to ``reduce(event, P)`` as it fires and its result kept."""
+        graph = self.net.graph
+        mode, wb, eps = self._ebp_subtree_mode, self._ebp_with_bias, self.eps
+        keep = tuple(sorted(k % graph.n_events for k in keep))
+
+        def fn(params, x, Pns):
+            with precision_scope("high"):
+                params, values, posvals = self._capture(params, x)
+                out = I.ebp_backward(
+                    graph, params, values, posvals,
+                    Pns.to(values[graph.input_id].dtype),
+                    subtree_mode=mode, eps=eps, with_bias=wb, keep=keep,
+                    reduce=reduce)
+            if reduce is not None:
+                return out
+            return {k: v.float() for k, v in out.items()}
+
+        return fn
+
     # ------------------------------------------------------------------
     # Saliency post-processing
     # ------------------------------------------------------------------
@@ -466,6 +500,249 @@ class Whitebox:
         mwp = self._contrastive_fn(truncate=True)(self.net.params, x, Pns,
                                                    float(percentile))
         return self._mwp_to_saliency(mwp.cpu().numpy().astype(np.float32))
+
+    def layerwise_ebp(self, img_probe, k_layer, mode="argmax", k_element=None,
+                      k_poschannel=0, mwp=True):
+        """Layerwise EBP: run EBP under class ``k_poschannel`` to get
+        P_mate, build a prior at event ``k_layer`` (its maxima, "argmax",
+        or its single flat element ``k_element``, "elementwise"), then
+        re-run with that prior and a zero output cotangent."""
+        if mode not in ("argmax", "elementwise"):
+            raise ValueError('invalid layerwise EBP mode "%s"' % mode)
+        x = self._as_input(img_probe)
+        kl = k_layer % self._n_events
+        base = self._ebp_raw_fn((kl,))(self.net.params, x,
+                                       self._onehot(k_poschannel))
+        Pk = base[kl].cpu().numpy().astype(np.float32)
+        if mode == "argmax":
+            prior = Pk * (Pk == Pk.max()).astype(np.float32)
+        else:
+            assert k_element is not None
+            prior = np.zeros(Pk.size, np.float32)
+            prior[k_element] = Pk.flat[k_element]
+            prior = prior.reshape(Pk.shape)
+        return self._prior_ebp(x, {kl: prior}, mwp=mwp)
+
+    def _prior_ebp(self, x, priors, mwp=False):
+        """EBP with a zero output cotangent and static per-event priors
+        ({event: array or tensor of the event's [1, ...] shape}), in the
+        params' dtype with TF32 off.  Returns the channel-pooled MWP of
+        event n_events-2 on the host, or its saliency map."""
+        graph = self.net.graph
+        mode, wb, eps = self._ebp_subtree_mode, self._ebp_with_bias, self.eps
+        kk = self._n_events - 2
+        with precision_scope("high"):
+            # float32 is no cast: the walk keeps the params' dtype
+            params, values, posvals = self._capture(self.net.params, x,
+                                                    torch.float32)
+            y = values[graph.output_id]
+            pri = {k: torch.as_tensor(v, device=y.device)
+                   for k, v in priors.items()}
+            out = I.ebp_backward(
+                graph, params, values, posvals, y.new_zeros((1,) + y.shape),
+                subtree_mode=mode, eps=eps, with_bias=wb, keep=(kk,),
+                priors=pri)
+        P = out[kk][0].float().sum(dim=1)
+        P = np.squeeze(P.cpu().numpy()).astype(np.float32)
+        return self._mwp_to_saliency(P) if not mwp else P
+
+    def layerwise_contrastive_ebp(self, img_probe, k_poschannel, k_negchannel,
+                                  k_layer, mode="copy", percentile=80,
+                                  k_element=None, gradlayer=None, mwp=False):
+        """Deprecated layerwise contrastive EBP.  The mate and nonmate MWPs
+        of event ``k_layer`` (one walk, two cotangent rows) give the
+        contrast C = relu(P_mate - P_nonmate); the prior at that event is
+        built on the host by ``mode``: copy (C), mean ((P_mate + C)/2),
+        product (sqrt(P_mate*C) in float64), argmax (C at its maxima),
+        percentile (C where P_mate's ascending stable cumulative mass
+        reaches ``percentile``%), percentile_argmax (that, at its maxima),
+        argmax_product (the product at its maxima), elementwise (C at
+        ``k_element``).  Then EBP re-runs under the prior."""
+        import warnings
+        warnings.warn("layerwise_contrastive_ebp is deprecated, use "
+                      "weighted_subtree_ebp instead")
+        x = self._as_input(img_probe)
+        Pns = torch.stack([self._onehot(k_poschannel),
+                           self._onehot(k_negchannel)])
+        kl = k_layer % self._n_events
+        out = self._ebp_multi_cotangent_fn((kl,))(self.net.params, x, Pns)
+        P = out[kl].cpu().numpy().astype(np.float32)
+        Pm, Pn_ = P[0], P[1]
+        C = np.maximum(Pm - Pn_, 0)
+
+        if mode == "copy":
+            prior = C
+        elif mode == "mean":
+            prior = 0.5 * (Pm + C)
+        elif mode == "product":
+            prior = np.sqrt(Pm.astype(np.float64) *
+                            C.astype(np.float64)).astype(np.float32)
+        elif mode == "argmax":
+            prior = C * (C == C.max()).astype(np.float32)
+        elif mode in ("percentile", "percentile_argmax"):
+            assert 0 <= percentile <= 100
+            flat = Pm.flatten()
+            order = np.argsort(flat, kind="stable")
+            csum = np.cumsum(flat[order])
+            m = np.zeros_like(flat)
+            m[order] = (csum >= (percentile / 100.0) * csum[-1]).astype(
+                np.float32)
+            prior = m.reshape(Pm.shape) * C
+            if mode == "percentile_argmax":
+                prior = prior * (prior == prior.max()).astype(np.float32)
+        elif mode == "argmax_product":
+            pr = np.sqrt(Pm.astype(np.float64) *
+                         C.astype(np.float64)).astype(np.float32)
+            prior = pr * (pr == pr.max()).astype(np.float32)
+        elif mode == "elementwise":
+            prior = np.zeros(C.size, np.float32)
+            prior[k_element] = C.flat[k_element]
+            prior = prior.reshape(C.shape)
+        else:
+            raise ValueError('unknown contrastive ebp mode "%s"' % mode)
+
+        return self._prior_ebp(x, {kl: prior}, mwp=mwp)
+
+    # ------------------------------------------------------------------
+    # Subtree EBP (the deprecated engine's method)
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _subtree_prior(P, percentile):
+        """One event's truncated-contrastive prior from its mate/nonmate
+        MWPs P [2, 1, ...]: the contrast relu(P_mate - P_nonmate) where the
+        mate's percentile-mass mask keeps it."""
+        Pm = P[0]
+        C = torch.clamp(Pm - P[1], min=0.0)
+        return _percentile_mass_mask(Pm, percentile) * C
+
+    def _subtree_rank_fn(self, argmax):
+        """Per-event truncated-contrastive prior construction for
+        ``subtree_ebp``, each event reduced as its MWPs fire (the JAX
+        package keeps every event's two MWPs in one program): the
+        percentile-mass masked contrast prior and the reference's
+        peakiness score ``max(prior / (1e-12 + sum(prior))) * numel``.
+
+        argmax=True: (params, x, Pns, percentile) -> (elems, vals, scores,
+        ties) [n_events-1] each, the prior's first maximum, its value, the
+        score of the prior that keeps all tied maxima (v / (ties*v) *
+        numel) and the tie count, for the static event-order sweep.
+        argmax=False: -> (per-event priors, scores) for the serial
+        full-prior path."""
+        cand = tuple(range(self._n_events - 1))
+
+        def fn(params, x, Pns, percentile):
+            def reduce(_, P):
+                pr = self._subtree_prior(P, percentile)
+                flat = pr.reshape(-1)
+                if not argmax:
+                    return pr, (flat.amax() / (1e-12 + flat.sum())) * \
+                        flat.numel()
+                el = flat.argmax()  # ties go to the first index
+                v = flat[el]
+                nt = (flat == v).sum()
+                return (el, v, (v / (1e-12 + v * nt.to(v.dtype)))
+                        * flat.numel(), nt)
+
+            out = self._ebp_multi_cotangent_fn(cand, reduce)(params, x, Pns)
+            if not argmax:
+                return (tuple(out[k][0] for k in cand),
+                        torch.stack([out[k][1] for k in cand]))
+            return tuple(torch.stack([out[k][i] for k in cand])
+                         for i in range(4))
+
+        return fn
+
+    def _subtree_tied_prior_fn(self, k):
+        """(params, x, Pns, percentile) -> event ``k``'s prior with every
+        tied maximum kept (value v at each): the exact-ties fallback of the
+        subtree_ebp sweep."""
+
+        def fn(params, x, Pns, percentile):
+            def reduce(_, P):
+                pr = self._subtree_prior(P, percentile)
+                m = pr.amax()
+                return torch.where(pr == m, m, 0.0)
+
+            return self._ebp_multi_cotangent_fn((k,), reduce)(
+                params, x, Pns)[k]
+
+        return fn
+
+    def subtree_ebp(self, img_probe, k_poschannel, k_negchannel,
+                    percentile=20, mode="percentile_argmax", topk=1):
+        """Subtree EBP, the deprecated engine's method.
+
+        Truncated contrastive EBP injected at every candidate event
+        (0..n_events-2); each candidate scored by the peakiness of its
+        injected prior (``max(prior/sum(prior)) * numel``), the score of a
+        candidate whose saliency plane is all zero set to 0; the last
+        ``topk`` by stable ascending argsort are kept and their
+        blurred+normalized planes summed, then sum-normalized (float ebp
+        versions) or uint8-normalized.
+
+        mode='percentile_argmax' (the default) runs the batched
+        static-event-order sweep over the priors' first maxima, and
+        recomputes an event whose prior has several tied maxima exactly
+        with all of them.  mode='percentile' injects each event's full
+        prior in its own walk (one walk per candidate).
+
+        Returns ``(smap, scores of the kept candidates, k_subtree)`` with
+        k_subtree in ascending-score order."""
+        if "percentile" not in mode:
+            raise AssertionError("subtree_ebp requires a percentile mode")
+        x = self._as_input(img_probe)
+        Pns = torch.stack([self._onehot(k_poschannel),
+                           self._onehot(k_negchannel)])
+        params, pct = self.net.params, float(percentile)
+
+        if mode == "percentile_argmax":
+            elems, vals, scores, ties = self._subtree_rank_fn(True)(
+                params, x, Pns, pct)
+            P_img_dev, maxes = self._wsebp_sweep_fn()(params, x, elems, vals)
+            scores = scores.cpu().numpy().astype(np.float64)
+            maxes = maxes.cpu().numpy().copy()  # tied events update it
+            # the reference's argmax keeps ALL tied maxima; the sweep
+            # injects one element, so an event with ties is recomputed
+            # exactly with its full tied prior
+            tied = np.where((ties.cpu().numpy() > 1)
+                            & (vals.cpu().numpy().astype(np.float64) > 0))[0]
+            tied_maps = {}
+            for k in tied:
+                prior = self._subtree_tied_prior_fn(int(k))(params, x, Pns,
+                                                            pct)
+                P = self._prior_ebp(x, {int(k): prior}, mwp=True)
+                maxes[k] = P.max()
+                tied_maps[int(k)] = self._mwp_to_saliency(P)
+            # MWP planes are non-negative: plane max > 0 iff the blurred
+            # saliency map is non-zero
+            scores = scores * (maxes > 0)
+            k_subtree = [int(k) for k in
+                         np.argsort(scores, kind="stable")[-topk:]]
+            sel = P_img_dev[torch.as_tensor(k_subtree, device=self.device)]
+            sel = sel.cpu().numpy().astype(np.float32)
+            maps = [tied_maps.get(k, self._mwp_to_saliency(m[0]))
+                    for k, m in zip(k_subtree, sel)]
+        else:
+            priors, scores = self._subtree_rank_fn(False)(params, x, Pns,
+                                                          pct)
+            scores = scores.cpu().numpy().astype(np.float64)
+            maps_all = []
+            for k in range(self._n_events - 1):
+                P = self._prior_ebp(x, {k: priors[k]}, mwp=True)
+                if P.max() <= 0:
+                    scores[k] = 0.0
+                maps_all.append(self._mwp_to_saliency(P))
+            k_subtree = [int(k) for k in
+                         np.argsort(scores, kind="stable")[-topk:]]
+            maps = [maps_all[k] for k in k_subtree]
+
+        smap = np.sum(np.stack(maps, axis=0), axis=0)
+        if self.convert_saliency_uint8:
+            smap = self._float32_to_uint8(smap)
+        else:
+            smap = smap / max(smap.sum(), self.eps)
+        return smap, [float(scores[k]) for k in k_subtree], k_subtree
 
     # ------------------------------------------------------------------
     # Probe-batched triplet EBP

@@ -42,11 +42,17 @@ DEFAULT_TAGS = {
     "relu": "ReLU",
     "maxpool2d": "MaxPool2d",
     "avgpool2d": "AvgPool2d",
+    "global_avgpool2d": "AdaptiveAvgPool2d",
     "add": "Add",
+    "mul": "Mul",
     "multiply_const": "Multiply",
     "concat_zero_channels": "ConcatChannels",
+    "split_identity": "Split",
+    "pair_max": "PairMax",
     "flatten": "Flatten",
     "l2normalize": "Normalize",
+    "dropout_eval": "Dropout",
+    "sigmoid": "Sigmoid",
     "identity": "Identity",
 }
 
@@ -178,9 +184,8 @@ class GraphBuilder:
 
     Every method returns the output tensor id.  ``hooked`` marks calls that
     correspond to torch leaf modules visited by the reference's layer
-    visitor; functional ops (normalize/flatten and the unhooked '+') are
-    unhooked.  The LightCNN blocks (mfm_conv, mfm_linear, dropout_eval)
-    wait for their ops.
+    visitor; functional ops (normalize/flatten/max/F.dropout and the '+'
+    of LightCNN-v2's pooling) are unhooked.
     """
 
     def __init__(self, name="graph"):
@@ -279,6 +284,24 @@ class GraphBuilder:
     def l2normalize(self, x, axis=1):
         return self.node("l2normalize", (x,), hooked=False, axis=axis)
 
+    def dropout_eval(self, x):
+        return self.node("dropout_eval", (x,), hooked=False)
+
     def funcadd(self, x, y):
         """Unhooked '+' (e.g. maxpool+avgpool in LightCNN-29v2)."""
         return self.node("add", (x, y), hooked=False, tag="FuncAdd")
+
+    def mfm_conv(self, x, cin, cout, kernel, stride=1, padding=0, name="mfm"):
+        """LightCNN max-feature-map conv block: Conv2d(2*cout) -> Split ->
+        torch.max.  The Split module is a hooked identity at the conv
+        output; the max is unhooked."""
+        y = self.conv2d(x, cin, 2 * cout, kernel, stride, padding, bias=True,
+                        name=name)
+        y = self.node("split_identity", (y,))
+        return self.node("pair_max", (y,), hooked=False)
+
+    def mfm_linear(self, x, fin, fout, name="mfm_fc"):
+        """LightCNN max-feature-map linear (type=0) block."""
+        y = self.linear(x, fin, 2 * fout, bias=True, name=name)
+        y = self.node("split_identity", (y,))
+        return self.node("pair_max", (y,), hooked=False)

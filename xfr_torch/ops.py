@@ -6,13 +6,16 @@ a tuple of input tensors.  Backward rules for excitation backprop come
 from ``torch.autograd.grad`` linearized at the clean inputs (``op_vjp``);
 for affine ops the caller passes ReLU'd ("positive") weights.
 
-Only the ops of the ResNet-101+L2 graph are ported; the LightCNN and
-SENet ops (split_identity, pair_max, mul, global_avgpool2d, sigmoid,
-dropout_eval) wait for their models (ROADMAP item 7).
+Every op of the JAX package's registry is ported: those of
+ResNet-101+L2, and those of LightCNN-29 v2 (split_identity, pair_max,
+dropout_eval), VGGFace2 SENet-50 (global_avgpool2d, mul, sigmoid) and
+VGG-16.
 
 Gradients follow the JAX rules, not torch's module defaults:
   * relu is ``torch.maximum(x, 0)``, whose gradient at x == 0 is 0.5
     like ``jax.vjp(jnp.maximum)`` (``torch.relu`` gives 0);
+  * pair_max splits a tie 0.5/0.5 between its two halves, as
+    ``jnp.maximum`` does;
   * maxpool pads with -inf and routes a tie to the first maximum of its
     window, as JAX's reduce_window does.
 
@@ -20,7 +23,9 @@ Gradients follow the JAX rules, not torch's module defaults:
 (``jax.vmap(vjp_fn)``), written out op by op so that no forward is
 recomputed and no row is looped over.  Every backward walk of the port
 goes through it; ``op_vjp`` remains its autograd fallback (l2normalize)
-and the oracle its rules are tested against.
+and the oracle its rules are tested against.  A rule is written out for
+every op that sits inside a network (a walk of LightCNN crosses 29
+pair_max nodes): the fallback would copy the op's capture once per row.
 """
 
 from __future__ import annotations
@@ -130,10 +135,22 @@ def avgpool2d(params, xs, *, kernel=(2, 2), stride=None, padding=(0, 0),
     return F.avg_pool2d(xp, kernel, stride)
 
 
+def global_avgpool2d(params, xs):
+    """AdaptiveAvgPool2d(1) (used by SENet SE blocks)."""
+    (x,) = xs
+    return torch.mean(x, dim=(2, 3), keepdim=True)
+
+
 def add(params, xs):
     """Residual add exposed as a hooked module."""
     x, y = xs
     return x + y
+
+
+def mul(params, xs):
+    """Elementwise (broadcasting) product, e.g. SE gating."""
+    x, y = xs
+    return x * y
 
 
 def multiply_const(params, xs, *, c=1.0):
@@ -150,6 +167,20 @@ def concat_zero_channels(params, xs, *, mult=1):
     return torch.cat([x, zeros], dim=1)
 
 
+def split_identity(params, xs):
+    """Stand-in for the LightCNN ``Split`` module hook point.  The actual
+    split+max happens in the (unhooked) ``pair_max`` op that follows."""
+    (x,) = xs
+    return x
+
+
+def pair_max(params, xs):
+    """torch.max(split[0], split[1]) of a channel-halved tensor."""
+    (x,) = xs
+    c = x.shape[1] // 2
+    return torch.maximum(x[:, :c], x[:, c:])
+
+
 def flatten(params, xs):
     (x,) = xs
     return x.reshape(x.shape[0], -1)
@@ -160,6 +191,17 @@ def l2normalize(params, xs, *, axis=1, eps=1e-12):
     (x,) = xs
     n = torch.sqrt(torch.sum(x * x, dim=axis, keepdim=True))
     return x / torch.clamp(n, min=eps)
+
+
+def dropout_eval(params, xs):
+    """F.dropout at eval time: identity."""
+    (x,) = xs
+    return x
+
+
+def sigmoid(params, xs):
+    (x,) = xs
+    return torch.sigmoid(x)
 
 
 def identity(params, xs):
@@ -178,11 +220,17 @@ OPS = {
     "relu": relu,
     "maxpool2d": maxpool2d,
     "avgpool2d": avgpool2d,
+    "global_avgpool2d": global_avgpool2d,
     "add": add,
+    "mul": mul,
     "multiply_const": multiply_const,
     "concat_zero_channels": concat_zero_channels,
+    "split_identity": split_identity,
+    "pair_max": pair_max,
     "flatten": flatten,
     "l2normalize": l2normalize,
+    "dropout_eval": dropout_eval,
+    "sigmoid": sigmoid,
     "identity": identity,
 }
 
@@ -330,8 +378,27 @@ def _rows_avgpool2d(params, xs, g, *, kernel=(2, 2), stride=None,
     return (_unpad(gp, x, kernel, stride, padding, ceil_mode),)
 
 
+def _rows_global_avgpool2d(params, xs, g):
+    (x,) = xs
+    h, w = x.shape[-2:]
+    return ((g / (h * w)).expand((g.shape[0],) + tuple(x.shape)),)
+
+
 def _rows_add(params, xs, g):
     return (g, g)
+
+
+def _sum_to(t, shape):
+    """Sum a [R, *out] product down to [R, *shape] (``shape`` of out's
+    rank), the adjoint of broadcasting ``shape`` to ``out``."""
+    dims = tuple(i + 1 for i, n in enumerate(shape)
+                 if n == 1 and t.shape[i + 1] != 1)
+    return t.sum(dim=dims, keepdim=True) if dims else t
+
+
+def _rows_mul(params, xs, g):
+    x, y = xs
+    return (_sum_to(g * y, tuple(x.shape)), _sum_to(g * x, tuple(y.shape)))
 
 
 def _rows_multiply_const(params, xs, g, *, c=1.0):
@@ -341,6 +408,23 @@ def _rows_multiply_const(params, xs, g, *, c=1.0):
 def _rows_concat_zero_channels(params, xs, g, *, mult=1):
     (x,) = xs
     return (g[:, :, :x.shape[1]],)
+
+
+def _rows_pair_max(params, xs, g):
+    """A tie sends half of the gradient to each half (jnp.maximum's
+    rule; a ``where(a > b)`` would send all of it to one)."""
+    (x,) = xs
+    c = x.shape[1] // 2
+    a, b = x[:, :c], x[:, c:]
+    tie = 0.5 * (a == b).to(g.dtype)
+    return (torch.cat([g * ((a > b).to(g.dtype) + tie),
+                       g * ((a < b).to(g.dtype) + tie)], dim=2),)
+
+
+def _rows_sigmoid(params, xs, g):
+    (x,) = xs
+    s = torch.sigmoid(x)
+    return (g * (s * (1 - s)),)
 
 
 def _rows_flatten(params, xs, g):
@@ -368,10 +452,16 @@ _ROW_VJPS = {
     "relu": _rows_relu,
     "maxpool2d": _rows_maxpool2d,
     "avgpool2d": _rows_avgpool2d,
+    "global_avgpool2d": _rows_global_avgpool2d,
     "add": _rows_add,
+    "mul": _rows_mul,
     "multiply_const": _rows_multiply_const,
     "concat_zero_channels": _rows_concat_zero_channels,
+    "split_identity": _rows_identity,
+    "pair_max": _rows_pair_max,
     "flatten": _rows_flatten,
+    "dropout_eval": _rows_identity,
+    "sigmoid": _rows_sigmoid,
     "identity": _rows_identity,
 }
 

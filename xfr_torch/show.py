@@ -73,11 +73,48 @@ def overlay_saliency(img, smap, overlap=True, blur=False, blur_sigma=0.02,
         heat /= heat.max()
     if not overlap:
         return heat
-    import matplotlib.pyplot as plt
-
-    colors = np.delete(plt.get_cmap("jet")(heat), 3, 2)
+    colors = jet(heat)
     alpha = (heat ** gamma).reshape(heat.shape + (1,))
     return (1 - alpha) * img + alpha * colors
+
+
+# matplotlib's "jet" segment data: (x, value below x, value above x)
+_JET_SEGMENTS = (
+    ((0.0, 0, 0), (0.35, 0, 0), (0.66, 1, 1), (0.89, 1, 1), (1.0, 0.5, 0.5)),
+    ((0.0, 0, 0), (0.125, 0, 0), (0.375, 1, 1), (0.64, 1, 1), (0.91, 0, 0),
+     (1.0, 0, 0)),
+    ((0.0, 0.5, 0.5), (0.11, 1, 1), (0.34, 1, 1), (0.65, 0, 0), (1.0, 0, 0)))
+
+
+def _jet_table(n=256):
+    """The n-entry RGB lookup table matplotlib builds from the segments."""
+    xind = (n - 1) * np.linspace(0, 1, n)
+    cols = []
+    for seg in _JET_SEGMENTS:
+        x, y0, y1 = np.array(seg, np.float64).T
+        x = x * (n - 1)
+        ind = np.searchsorted(x, xind)[1:-1]
+        distance = (xind[1:-1] - x[ind - 1]) / (x[ind] - x[ind - 1])
+        cols.append(np.clip(np.concatenate(
+            [[y1[0]], distance * (y0[ind] - y1[ind - 1]) + y1[ind - 1],
+             [y0[-1]]]), 0.0, 1.0))
+    return np.stack(cols, axis=1)
+
+
+_JET_LUT = _jet_table()
+
+
+def jet(x):
+    """``matplotlib.cm.jet(x)`` without its alpha channel, for a float
+    array, without matplotlib: x scaled by 256 and truncated into the
+    256-entry table, values outside [0, 1] clamped to the end colors, NaN
+    black."""
+    n = _JET_LUT.shape[0]
+    xa = np.asarray(x, np.float64) * n
+    bad = np.isnan(xa)
+    out = _JET_LUT[np.clip(np.where(bad, 0, xa), 0, n - 1).astype(int)]
+    out[bad] = 0.0
+    return out
 
 
 def ReturnComparison(imgVec, attMaps, suppressMap=None, overlap=True,
