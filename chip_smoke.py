@@ -87,14 +87,29 @@ c.phase_device(); c.phase_build(); c.phase_lightcnn()"``:
              serial percentile mode card against CPU at one block a
              stage, in float64 and in float32; STRise's uint8 prior card
              against CPU
+  detect_parity the Faster R-CNN face detector's network on the card and
+             on the CPU, same weights (detector_params), on a
+             synthetic 600x800 uint8 image at the default 800 px (blob
+             800x1067, res4 50x67, 30,150 anchors): trunk features, RPN
+             probabilities and deltas, and the top's bbox_pred and
+             cls_prob on the CPU's RoIs, each within 1e-4 of its max; the
+             final detections where their scores are separated by 1e-4
+  detect     FasterRCNN(conf_threshold=-1.0) at full width on the card:
+             one warm-up, 3 timed detect() calls, one with rotate_flags=7
+             and padding 10; the stages of one pass (trunk+RPN and top by
+             CUDA events; the host proposal layer and roi_pool, the
+             copies each way by host clock), RoIs, peak memory, the same
+             under TF32; K1 must launch 0 times
   eccv20     python -m xfr_torch.cli.eccv20 --figure 3 --subjects 2 on a
-             synthetic JPEG corpus, full LightCNN-29 v2 on the card
+             synthetic JPEG corpus, full LightCNN-29 v2 on the card; then
+             with --use-detector, detect() counted on every image
 
 The last lines are the card's name and power limit, the "kernels" line
 and {"ok": true, "device": {...}}.
 """
 
 import contextlib
+import functools
 import gc
 import json
 import subprocess
@@ -116,8 +131,14 @@ EVAL_MAPS, EVAL_GROUPS = 4, 10
 EVAL_PCT = np.unique(np.sort(np.append(np.arange(0, 100, 1), [0, 100])))
 
 
+_T0 = time.time()
+
+
 def emit(phase, **rec):
-    print(json.dumps({"phase": phase, **rec}), flush=True)
+    """One JSON line; ``t_s`` is the seconds since the module was loaded,
+    so successive lines give each phase's wall time."""
+    print(json.dumps({"phase": phase, **rec, "t_s": time.time() - _T0}),
+          flush=True)
 
 
 def cuda_ms(fn, reps=15, inner=10, warmup=3, hold_cycles=20_000_000):
@@ -1865,20 +1886,322 @@ def phase_variants():
                              f"uint8 prior {prior_err} of {pmax}")
 
 
+# the detector's phases: a synthetic 600x800 image at the default scale
+# (blob 800x1067, res4 50x67, 30,150 anchors)
+DET_HW = (600, 800)
+DET_REL = 1e-4      # card against CPU, of each output's max
+DET_MARGIN = 1e-4   # final scores compared where separated by this
+DET_BOX_PX = 0.1    # final boxes, pixels
+
+
+def detect_image(seed=0):
+    """A synthetic 600x800 uint8 RGB image: noise with bright and dark
+    rectangles."""
+    rng = np.random.RandomState(seed)
+    H, W = DET_HW
+    img = (rng.rand(H, W, 3) * 80 + 60).astype(np.uint8)
+    for _ in range(6):
+        h, w = rng.randint(H // 15, H // 4, 2)
+        y, x = rng.randint(0, H - h), rng.randint(0, W - w)
+        img[y:y + h, x:x + w] = rng.randint(0, 256, 3)
+    return img
+
+
+@contextlib.contextmanager
+def detector_precision(precision):
+    """The detector's convolution precision swapped for a block."""
+    from xfr_torch.detection import network as DN
+
+    prev, DN._PRECISION = DN._PRECISION, precision
+    try:
+        yield
+    finally:
+        DN._PRECISION = prev
+
+
+def _unit_scale(graph, params, x):
+    """One forward of ``graph`` on ``x`` that rescales each conv and
+    linear, in call order, so that its output has unit standard deviation
+    (in place on ``params``); returns the values."""
+    from xfr_torch import ops as O
+
+    values = [None] * graph.n_tensors
+    values[graph.input_id] = x
+    for node in graph.nodes:
+        p = params.get(node.pname, {}) if node.pname else {}
+        y = O.apply_op(node.op, p, tuple(values[i] for i in node.ins),
+                       node.attrs_dict)
+        if node.op in ("conv2d", "linear"):
+            s = y.std()
+            for v in p.values():
+                v.div_(s)
+            y = y / s
+        values[node.out] = y
+    return values
+
+
+def detector_params(seed=0):
+    """The detector's random weights on the card: the numpy init (seeds
+    seed, seed+1, seed+2, as FasterRCNNNetwork draws them), each conv and
+    linear then rescaled in call order to unit output deviation on one
+    seeded 224x224 image (the top on that image's RoIs).  Unscaled, the
+    init's activations grow through the residual blocks until res4
+    reaches ~2e11, every RPN delta moves its box off the image, and the
+    proposal layer keeps no RoI (phase_detect reports it)."""
+    import torch
+
+    from xfr_torch import ops as O
+    from xfr_torch.detection import boxes as B
+    from xfr_torch.detection import detector as D
+    from xfr_torch.detection.network import FasterRCNNNetwork
+    from xfr_torch.utils.device import precision_scope
+
+    net = FasterRCNNNetwork(seed=seed)
+    img = (np.random.RandomState(seed + 10).rand(224, 224, 3) * 255).astype(
+        np.uint8)
+    blob, scales = D._get_image_blob(img, (224,), 1300)
+    im_info = np.array([[224, 224, scales[0]]], np.float32)
+    x = net._to_device(blob)
+    with torch.no_grad(), precision_scope("high"):
+        tg, rg = net.trunk_graph, net.rpn_graph
+        feats = _unit_scale(tg, net.params["trunk"], x)[tg.output_id]
+        relu = _unit_scale(rg, net.params["rpn"], feats)[net._rpn_relu]
+        node = net._rpn_bbox_node
+        p = net.params["rpn"][node.pname]
+        s = O.apply_op(node.op, p, (relu,), node.attrs_dict).std()
+        for v in p.values():
+            v.div_(s)
+        _, prob, bbox = net._features_and_rpn(x)
+        rois = B.proposal_layer(prob.cpu().numpy(), bbox.cpu().numpy(),
+                                im_info)
+        roi_feats = B.roi_pool(feats.cpu().numpy(), rois, (14, 14), 0.0625)
+        _unit_scale(net.top_graph, net.params["top"],
+                    net._to_device(roi_feats))
+    return net.params
+
+
+def _rel(a, b):
+    return float(np.abs(a.astype(np.float64) - b).max() / np.abs(b).max())
+
+
+def check_dets(dets):
+    if not (dets.ndim == 2 and dets.shape[1] == 5 and
+            np.isfinite(dets).all() and (dets[:, 2] > 0).all() and
+            (dets[:, 3] > 0).all()):
+        raise AssertionError(f"detections {dets.shape}: not [n, 5] finite "
+                             "with positive widths and heights")
+
+
+def compare_dets(got, want):
+    """Each of ``want``'s detections whose score lies more than DET_MARGIN
+    from every other score of its set must have a detection in ``got``
+    within DET_MARGIN / 2 of its score and DET_BOX_PX of its box.
+    Returns (separated, matched, not separated)."""
+    sep = matched = 0
+    for i, d in enumerate(want):
+        gaps = np.abs(np.delete(want[:, 4], i) - d[4])
+        if len(gaps) and gaps.min() <= DET_MARGIN:
+            continue
+        sep += 1
+        near = got[np.abs(got[:, 4] - d[4]) <= DET_MARGIN / 2]
+        if len(near) and np.abs(near[:, :4] - d[:4]).max(axis=1).min() <= \
+                DET_BOX_PX:
+            matched += 1
+    return sep, matched, len(want) - sep
+
+
+def phase_detect_parity():
+    """The detector's network on the card and on the CPU, same weights
+    (``detector_params``), on the synthetic image at the default 800 px:
+    the trunk's features, the RPN's probabilities and deltas; the top on
+    the CPU's RoIs on both devices; then both devices' detect()."""
+    from xfr_torch.detection import boxes as B
+    from xfr_torch.detection import detector as D
+    from xfr_torch.detection.network import FasterRCNNNetwork
+    from xfr_torch.models.common import params_to
+
+    img = detect_image()
+    blob, scales = D._get_image_blob(img)
+    im_info = np.array([[blob.shape[2], blob.shape[3], scales[0]]],
+                       np.float32)
+    params = detector_params()
+    nets = {"cuda": FasterRCNNNetwork(params=params),
+            "cpu": FasterRCNNNetwork(params={
+                part: params_to(p, "cpu") for part, p in params.items()},
+                device="cpu")}
+    k1_0 = k1_launches()
+    rpn = {dev: [t.cpu().numpy() for t in net._features_and_rpn(
+        net._to_device(blob))] for dev, net in nets.items()}
+    names = ("feats", "rpn_prob", "rpn_bbox")
+    errs = {n: _rel(rpn["cuda"][i], rpn["cpu"][i])
+            for i, n in enumerate(names)}
+    feats, prob, bbox = rpn["cpu"]
+    rois = B.proposal_layer(prob, bbox, im_info)
+    roi_feats = B.roi_pool(feats, rois, (14, 14), 0.0625)
+    top = {dev: [t.cpu().numpy() for t in net._top(net._to_device(
+        roi_feats))] for dev, net in nets.items()}
+    errs["bbox_pred"] = _rel(top["cuda"][0], top["cpu"][0])
+    errs["cls_prob"] = _rel(top["cuda"][1], top["cpu"][1])
+    dets = {dev: D.FasterRCNN(net=net, conf_threshold=-1.0).detect(img)
+            for dev, net in nets.items()}
+    for d in dets.values():
+        check_dets(d)
+    sep, matched, tied = compare_dets(dets["cuda"], dets["cpu"])
+    k1 = k1_launches() - k1_0
+    emit("detect_parity", blob=list(blob.shape), res4=list(feats.shape),
+         anchors=int(prob.shape[2] * prob.shape[3] * 9), rois=len(rois),
+         rel_err=errs, tol={"rel": DET_REL, "score_margin": DET_MARGIN,
+                            "box_px": DET_BOX_PX},
+         detections={dev: len(d) for dev, d in dets.items()},
+         separated=sep, matched=matched, not_separated=tied,
+         k1_launches=k1)
+    check_no_k1("detect_parity", k1)
+    bad = {k: v for k, v in errs.items() if not v <= DET_REL}
+    if bad or matched != sep or sep == 0:
+        raise AssertionError(f"detect_parity: card and CPU disagree: {bad}, "
+                             f"{matched} of {sep} separated detections "
+                             "matched")
+
+
+def detect_stages(net, img, reps=3):
+    """One detect() pass split into its stages, each the median of
+    ``reps``: the blob on the host, the upload, trunk+RPN and the top by
+    CUDA events, the device->host copies, the proposal layer and roi_pool
+    on the host, and the RoI features' host->device copy."""
+    import torch
+
+    from xfr_torch.detection import boxes as B
+    from xfr_torch.detection import detector as D
+
+    rec = {k: [] for k in ("blob_s", "upload_s", "trunk_rpn_ms", "d2h_s",
+                           "proposal_s", "roi_pool_s", "h2d_s", "top_ms")}
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        blob, scales = D._get_image_blob(img)
+        im_info = np.array([[blob.shape[2], blob.shape[3], scales[0]]],
+                           np.float32)
+        rec["blob_s"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        im = net._to_device(blob)
+        torch.cuda.synchronize()
+        rec["upload_s"].append(time.perf_counter() - t)
+        a.record()
+        feats, prob, bbox = net._features_and_rpn(im)
+        b.record()
+        b.synchronize()
+        rec["trunk_rpn_ms"].append(a.elapsed_time(b))
+        t = time.perf_counter()
+        prob, bbox, feats = (x.cpu().numpy() for x in (prob, bbox, feats))
+        rec["d2h_s"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        rois = B.proposal_layer(prob, bbox, im_info)
+        rec["proposal_s"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        roi_feats = B.roi_pool(feats, rois, (14, 14), 0.0625)
+        rec["roi_pool_s"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        roi_dev = net._to_device(roi_feats)
+        torch.cuda.synchronize()
+        rec["h2d_s"].append(time.perf_counter() - t)
+        a.record()
+        net._top(roi_dev)
+        b.record()
+        b.synchronize()
+        rec["top_ms"].append(a.elapsed_time(b))
+    out = {k: float(np.median(v)) for k, v in rec.items()}
+    out.update(rois=len(rois), d2h_bytes=feats.nbytes + prob.nbytes +
+               bbox.nbytes, h2d_bytes=roi_feats.nbytes)
+    return out
+
+
+def phase_detect():
+    """FasterRCNN(conf_threshold=-1.0) at full width on the card (default
+    800 px, max 1300) with ``detector_params``: one warm-up, 3 timed
+    detect() calls, one with rotate_flags=7 and padding 10; the stages of
+    one pass, full float32 and TF32; peak memory; K1 launches (0).  Also
+    the unscaled numpy init's res4 magnitude and RoI count."""
+    import torch
+
+    from xfr_torch.detection import FasterRCNN
+
+    from xfr_torch.detection import boxes as B
+    from xfr_torch.detection import detector as D
+
+    img = detect_image()
+    k1_0 = k1_launches()
+    gc.collect()
+    # the unscaled numpy init, for the record: its res4 and RoI count
+    raw = FasterRCNN(conf_threshold=-1.0).net
+    blob, scales = D._get_image_blob(img)
+    feats, prob, bbox = raw._features_and_rpn(raw._to_device(blob))
+    raw_rec = {"res4_absmax": float(feats.abs().max()),
+               "rpn_bbox_absmax": float(bbox.abs().max()),
+               "rois": len(B.proposal_layer(
+                   prob.cpu().numpy(), bbox.cpu().numpy(),
+                   [[blob.shape[2], blob.shape[3], scales[0]]]))}
+    del raw, feats, prob, bbox
+    t0 = time.time()
+    det = FasterRCNN(conf_threshold=-1.0, params=detector_params())
+    build_s = time.time() - t0
+    t0 = time.time()
+    check_dets(det.detect(img))
+    warm_s = time.time() - t0
+    torch.cuda.reset_peak_memory_stats()
+    start_mem = torch.cuda.memory_allocated()
+
+    def timed(n, **kw):
+        walls = []
+        for _ in range(n):
+            t = time.perf_counter()
+            dets = det.detect(img, **kw)
+            walls.append(time.perf_counter() - t)
+            check_dets(dets)
+        return walls, len(dets)
+
+    walls, n_dets = timed(3)
+    peak = torch.cuda.max_memory_allocated()
+    det.rotate_flags = 7
+    walls7, n_dets7 = timed(1, padding=10)
+    det.rotate_flags = 0
+    stages = detect_stages(det.net, img)
+    with detector_precision(None):
+        tf32_walls, _ = timed(3)
+        tf32_stages = detect_stages(det.net, img)
+    k1 = k1_launches() - k1_0
+    emit("detect", image=list(DET_HW), raw_init=raw_rec, build_s=build_s,
+         warmup_s=warm_s,
+         detect_s=walls, detections=n_dets, rotate7_padding10_s=walls7,
+         rotate7_detections=n_dets7, stages=stages,
+         peak_mem_bytes=peak, start_mem_bytes=start_mem,
+         tf32={"detect_s": tf32_walls, "stages": tf32_stages},
+         k1_launches=k1)
+    check_no_k1("detect", k1)
+    if stages["rois"] == 0:
+        raise AssertionError("detect: the proposal layer kept no RoI")
+
+
 def phase_eccv20():
     """python -m xfr_torch.cli.eccv20 --figure 3 --subjects 2 on a
     synthetic 4-subject JPEG directory: full LightCNN-29 v2 on the card
     (ebp_version 5, affineonly_with_prior), every method; the six montages
-    must exist with their grid's size."""
+    must exist with their grid's size.  Then the same with
+    --use-detector, the CLI's FasterRCNN() given ``detector_params``: it
+    must run detect() once for every image the figure reads (an image
+    with no detection falls back to the center crop), and the montages
+    keep their sizes."""
     import os
     import tempfile
 
     import PIL.Image
+    from xfr_torch import detection
     from xfr_torch.cli import eccv20
+    from xfr_torch.detection import detector as D
 
     tmp = tempfile.TemporaryDirectory()
-    data, out = (os.path.join(tmp.name, d) for d in ("data", "out"))
-    os.makedirs(out)
+    data = os.path.join(tmp.name, "data")
     rng = np.random.RandomState(1)
     for sid in range(4):
         d = os.path.join(data, "s%02d" % sid)
@@ -1891,21 +2214,54 @@ def phase_eccv20():
             img = np.clip(base.astype(int) + rng.randint(-10, 10, base.shape),
                           0, 255).astype(np.uint8)
             PIL.Image.fromarray(img).save(os.path.join(d, "im%d.jpg" % k))
-    k1_0 = k1_launches()
-    t0 = time.time()
-    outs = eccv20.main(["--dataset", data, "--output", out, "--figure", "3",
-                        "--subjects", "2"])
-    secs = time.time() - t0
-    k1 = k1_launches() - k1_0
     want = {"figure3%s_2.jpg" % c: (3 * 113, (6 if c == "f" else 3) * 113)
             for c in "abcdef"}
-    sizes = {os.path.basename(f): PIL.Image.open(f).size for f in outs}
+    counts = {"images": 0, "detect": 0, "found": 0}
+    crop, detect = eccv20.f_detection, D.FasterRCNN.detect
+    params = detector_params()
+
+    def counted_crop(imgfile, detector=None, out_size=224):
+        counts["images"] += 1
+        return crop(imgfile, detector, out_size)
+
+    def counted_detect(self, image, **kw):
+        counts["detect"] += 1
+        dets = detect(self, image, **kw)
+        counts["found"] += len(dets) > 0
+        return dets
+
+    rec = {}
+    k1_0 = k1_launches()
+    for run, extra in (("center_crop", []),
+                       ("use_detector", ["--use-detector"])):
+        out = os.path.join(tmp.name, run)
+        os.makedirs(out)
+        counts.update(images=0, detect=0, found=0)
+        eccv20.f_detection, D.FasterRCNN.detect = counted_crop, counted_detect
+        detection.FasterRCNN = functools.partial(D.FasterRCNN, params=params)
+        try:
+            t0 = time.time()
+            outs = eccv20.main(["--dataset", data, "--output", out,
+                                "--figure", "3", "--subjects", "2"] + extra)
+            secs = time.time() - t0
+        finally:
+            eccv20.f_detection, D.FasterRCNN.detect = crop, detect
+            detection.FasterRCNN = D.FasterRCNN
+        sizes = {os.path.basename(f): PIL.Image.open(f).size for f in outs}
+        rec[run] = dict(s=secs, files=sizes, **counts)
+        if sizes != want:
+            raise AssertionError(f"eccv20 {run}: montages {sizes}, "
+                                 f"expected {want}")
     tmp.cleanup()
-    emit("eccv20", figure=3, subjects=2, net="lightcnn", s=secs,
-         files=sizes, k1_launches=k1)
+    k1 = k1_launches() - k1_0
+    emit("eccv20", figure=3, subjects=2, net="lightcnn", k1_launches=k1,
+         **rec)
     check_no_k1("eccv20", k1)
-    if sizes != want:
-        raise AssertionError(f"eccv20 montages {sizes}, expected {want}")
+    det = rec["use_detector"]
+    if rec["center_crop"]["detect"] or det["detect"] != det["images"] or \
+            det["images"] == 0:
+        raise AssertionError(f"eccv20: detect() ran {det['detect']} times "
+                             f"for {det['images']} images")
 
 
 def main():
@@ -1943,6 +2299,8 @@ def main():
     phase_lightcnn()
     phase_vggface2()
     phase_variants()
+    phase_detect_parity()
+    phase_detect()
     phase_eccv20()
     emit("done", seconds=time.time() - t_start)
     print(smi, flush=True)

@@ -20,7 +20,7 @@ import PIL.Image
 import pytest
 
 from tests.fixtures import make_toy_wbnet
-from tests.torch_fixtures import toy_preprocess, twin_whitebox
+from tests.torch_fixtures import FakeNet, toy_preprocess, twin_whitebox
 from xfr_tpu.cli import eccv20 as J
 from xfr_tpu.ebp.engine import Whitebox as JWhitebox
 
@@ -146,11 +146,9 @@ def test_topk_nonmates_and_detection_match_jax(corpus):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
-def test_main_matches_jax_on_uint8_maps(corpus, tmp_path, monkeypatch):
-    """main() with the factory patched to ebp_version 5 toy nets (the
-    CLI's setting, uint8 maps): figures 1 and 3 with every method, the
-    same files and maps (to one uint8 step); --use-detector refused until
-    the detector is ported."""
+def _toy_factories(monkeypatch):
+    """Patch both packages' create_wbnet to return ebp_version 5 toy nets
+    (the CLI's setting, uint8 maps); returns the list of their calls."""
     import xfr_tpu.models
     import xfr_torch.models
 
@@ -169,6 +167,14 @@ def test_main_matches_jax_on_uint8_maps(corpus, tmp_path, monkeypatch):
 
     monkeypatch.setattr(xfr_tpu.models, "create_wbnet", factory(jwb))
     monkeypatch.setattr(xfr_torch.models, "create_wbnet", factory(twb))
+    return seen
+
+
+def test_main_matches_jax_on_uint8_maps(corpus, tmp_path, monkeypatch):
+    """main() with the factory patched to ebp_version 5 toy nets (the
+    CLI's setting, uint8 maps): figures 1 and 3 with every method, the
+    same files and maps (to one uint8 step)."""
+    seen = _toy_factories(monkeypatch)
     jmaps, tmaps = _recorded(monkeypatch, J), _recorded(monkeypatch, T)
     argv = ["--dataset", corpus, "--figure", "1", "3", "--subjects", "2",
             "--wsebp-max-candidates", "6"]
@@ -201,8 +207,70 @@ def test_main_matches_jax_on_uint8_maps(corpus, tmp_path, monkeypatch):
         assert off.mean() <= 0.01, (i, method, int(off.sum()))
         if b.max() > 0:
             assert np.corrcoef(a.ravel(), b.ravel())[0, 1] >= 0.999, i
-    with pytest.raises(NotImplementedError, match="item 12"):
-        T.main(argv + ["--use-detector"])
+
+
+def test_main_use_detector_matches_jax(corpus, tmp_path, monkeypatch):
+    """main(--use-detector) on figure 1 with each package's FasterRCNN
+    built around the same fake network (tests/torch_fixtures.FakeNet, so
+    no detector weights run here): detect() runs once for every image the
+    figure reads, each face crop equals the JAX driver's, and the same
+    files are written."""
+    import xfr_tpu.detection
+    import xfr_torch.detection
+
+    _toy_factories(monkeypatch)
+    crops = {"jax": [], "torch": []}
+    detects = {"jax": 0, "torch": 0}
+    found = []
+
+    def detector(key, module):
+        cls = module.FasterRCNN
+
+        def make(**kw):
+            assert kw == {}
+            det = cls(net=FakeNet())
+            detect = det.detect
+
+            def counted(*a, **k):
+                detects[key] += 1
+                dets = detect(*a, **k)
+                found.append(len(dets))
+                return dets
+            det.detect = counted
+            return det
+        return make
+
+    def recorded_crop(key, module):
+        f = module.f_detection
+
+        def rec(imgfile, detector=None, out_size=224):
+            assert detector is not None
+            im = f(imgfile, detector, out_size)
+            crops[key].append(np.asarray(im))
+            return im
+        return rec
+
+    for key, det_mod, cli in (("jax", xfr_tpu.detection, J),
+                              ("torch", xfr_torch.detection, T)):
+        monkeypatch.setattr(det_mod, "FasterRCNN", detector(key, det_mod))
+        monkeypatch.setattr(cli, "f_detection", recorded_crop(key, cli))
+    argv = ["--dataset", corpus, "--figure", "1", "--subjects", "2",
+            "--use-detector"]
+    (tmp_path / "j").mkdir()
+    (tmp_path / "t").mkdir()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        J.main(argv + ["--output", str(tmp_path / "j")])
+    outs = T.main(argv + ["--output", str(tmp_path / "t")])
+    assert len(outs) == len(ALL_METHODS) + 1
+    assert sorted(os.listdir(tmp_path / "t")) == \
+        sorted(os.listdir(tmp_path / "j"))
+    assert detects["torch"] == len(crops["torch"]) > 0
+    assert detects["jax"] == detects["torch"]
+    assert min(found) > 0  # every crop came from a detection
+    for a, b in zip(crops["torch"], crops["jax"]):
+        assert a.shape == (224, 224, 3)
+        np.testing.assert_array_equal(a, b)
 
 
 def test_jet_colormap_equals_matplotlib():

@@ -264,16 +264,16 @@ def test_entry_points_refuse_missing_card_and_mesh(nets):
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, xfr_torch.blackbox.strise, xfr_torch.models, "
-            "xfr_torch.kernels, xfr_torch.blackbox.fused_blend, "
-            "xfr_torch.inpainting_game.analysis, xfr_torch.show, "
-            "xfr_torch.cli.run_eval, xfr_torch.cli.hiding_game, "
-            "xfr_torch.models.lightcnn, xfr_torch.models.vggface2, "
-            "xfr_torch.models.vggface, xfr_torch.models.checkpoint, "
-            "xfr_torch.cli.eccv20; "
+    """Every module of xfr_torch, as pkgutil.walk_packages finds them, and
+    chip_smoke import without JAX, jaxlib or xfr_tpu."""
+    code = ("import importlib, pkgutil, sys, xfr_torch; "
+            "names = [m.name for m in pkgutil.walk_packages("
+            "xfr_torch.__path__, 'xfr_torch.')] + ['chip_smoke']; "
+            "[importlib.import_module(n) for n in names]; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'xfr_tpu')]; "
-            "assert not bad, bad")
+            "assert not bad, bad; "
+            "assert len(names) > 30, names")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     subprocess.run([sys.executable, "-c", code], cwd=root, check=True,
                    timeout=120)

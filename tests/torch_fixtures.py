@@ -103,3 +103,29 @@ def twin_whitebox(jax_wb, dtype=None, graph=None, ebp_version=None,
     wb.match_threshold = jax_wb.match_threshold
     wb.platts_scaling = jax_wb.platts_scaling
     return wb
+
+
+class FakeNet:
+    """A deterministic stand-in for the Faster R-CNN network
+    (``FasterRCNN(net=FakeNet())`` in either package) whose detections
+    depend on the image blob: RoIs, deltas and class probabilities drawn from a
+    generator seeded by the blob's content.  Records each call's blob
+    shape."""
+
+    def __init__(self, n_rois=40):
+        self.n_rois = n_rois
+        self.calls = []
+
+    def __call__(self, im_blob, im_info):
+        im_blob = np.asarray(im_blob)
+        self.calls.append(im_blob.shape)
+        h, w = im_blob.shape[2:]
+        seed = int(np.abs(im_blob.astype(np.float64)).sum() * 1000) % 2**31
+        rng = np.random.RandomState(seed)
+        xy = rng.rand(self.n_rois, 2) * [w * 0.6, h * 0.6]
+        wh = rng.rand(self.n_rois, 2) * [w * 0.4, h * 0.4] + 8
+        rois = np.hstack([np.zeros((self.n_rois, 1)), xy, xy + wh])
+        bbox_pred = (rng.randn(self.n_rois, 8) * 0.1).astype(np.float32)
+        score = rng.randn(self.n_rois, 2).astype(np.float32)
+        prob = np.exp(score) / np.exp(score).sum(axis=1, keepdims=True)
+        return rois.astype(np.float32), bbox_pred, prob, score

@@ -11,12 +11,22 @@ Kernels that the JAX package wrote in Pallas for the TPU are CUDA C++
 sources under ``xfr_torch/csrc/``, built by ``nvcc`` at first use.
 
 Ported so far: the STRise blackbox saliency path (graph IR, ops,
-ResNet-101+L2, the single EBP walk, masks, the fused mask-blend kernel and
-the scorer), the whitebox 4-map mix, the inpainting game's generation
+ResNet-101+L2, the single EBP walk, masks, the fused mask-blend kernel,
+the scorer and the gallery montage), the whitebox 4-map mix and the rest
+of the whitebox API, the other matchers, the inpainting game's generation
 stage (the per-probe weighted-subtree path, the generators, the dataset
 filter, the match-threshold calibration and their CLIs) and its
 evaluation stage (protocol, blend+encode, analysis, the ``run_eval`` and
-``hiding_game`` CLIs).  ROADMAP.md lists what is still to be ported.
+``hiding_game`` CLIs), the Faster R-CNN face detector (``detection``),
+``data.transforms``, ``strface``, the ``eccv20`` figures (with
+``--use-detector``), ``unpack_dataset`` and ``utils.{params, misc,
+profiling}``.  ROADMAP.md lists what is still to be ported (the triplet
+loader, fine-tuning and the mesh forms).
+
+Not applicable, so not ported: the XLA compile cache
+(``xfr_tpu.__init__._enable_persistent_compile_cache``, ``cli/warm_cache``
+and the program registry ``utils/programs``) — torch compiles nothing
+ahead of a call here, and a CUDA kernel is built once by ``kernels.load``.
 
 Path conventions mirror the JAX package's (the same environment
 overrides).

@@ -15,7 +15,8 @@ in plain PyTorch.  The JAX package's ``lax.scan`` over chunks is a Python
 loop here; every chunk is enqueued on the device stream without a host
 sync until the drain.
 
-Not ported yet: ``save_gallery``/``plot_gallery``.
+The gallery montage (``plot_gallery``, ``save_gallery``) needs
+matplotlib, imported inside the methods; it draws on the host.
 """
 
 from __future__ import annotations
@@ -620,6 +621,53 @@ class STRise:
         saliency_map -= saliency_map.min()
         saliency_map /= saliency_map.max()
         self.saliency_map = saliency_map
+
+    # -- gallery visualization -------------------------------------------------
+
+    def _gallery_montage(self):
+        """Gallery montage figure shared by plot_gallery / save_gallery:
+        10 columns, one tile per gallery image."""
+        import math
+
+        import matplotlib.pyplot as plt
+
+        ncols = 10
+        # an empty gallery would give nrows=0, on which plt.subplots raises
+        nrows = max(1, int(math.ceil(1.0 * self.gallery_size / ncols)))
+        fig, axes = plt.subplots(ncols=ncols, nrows=nrows, squeeze=False,
+                                 figsize=(ncols, nrows))
+        if _is_dataframe(self.gallery):
+            ims = (center_crop(self.gallery.at[i, "Filename"],
+                               convert_uint8=False)
+                   for i in self.gallery.index)
+        else:
+            ims = iter(self.gallery)
+        i = -1
+        for i, im in enumerate(ims):
+            ax = axes.flat[i]
+            ax.set_xticks([])
+            ax.set_yticks([])
+            ax.xaxis.label.set_visible(False)
+            ax.yaxis.label.set_visible(False)
+            ax.imshow(im)
+        for ii in range(i + 1, nrows * ncols):
+            fig.delaxes(axes.flat[ii])
+        fig.tight_layout(pad=0, w_pad=0, h_pad=0)
+        fig.subplots_adjust(hspace=0, wspace=0)
+        return fig
+
+    def plot_gallery(self):
+        import matplotlib.pyplot as plt
+
+        self._gallery_montage()
+        plt.show()
+
+    def save_gallery(self, filename):
+        import matplotlib.pyplot as plt
+
+        fig = self._gallery_montage()
+        fig.savefig(filename, bbox_inches="tight")
+        plt.close(fig)
 
     # -- driver ----------------------------------------------------------------
 

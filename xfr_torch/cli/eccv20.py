@@ -6,8 +6,10 @@ Any directory of ``<subject>/<image>`` folders is a corpus; montages are
 plain PIL.  Subject mining, triplet montages and the per-method saliency
 overlays build figures 1-5: figures 1-2 on the ResNet-101 matcher,
 figures 3-5 on LightCNN-29 v2 in its affineonly_with_prior mode, both
-with ebp_version 5.  Faces are center-cropped: the detector
-(``--use-detector``) waits for the port of the detection package.
+with ebp_version 5.  Faces are center-cropped, or with ``--use-detector``
+cropped to the first box of the Faster R-CNN face detector
+(``xfr_torch.detection.FasterRCNN``, on the card), with the center crop
+as the fallback when it finds none.
 """
 
 from __future__ import annotations
@@ -339,16 +341,15 @@ def main(argv=None):
     parser.add_argument("--use-detector", action="store_true")
     args = parser.parse_args(argv)
 
-    if args.use_detector:
-        raise NotImplementedError(
-            "--use-detector: the face detector is not ported yet (ROADMAP "
-            "queue 1, item 12, detection); faces are center-cropped "
-            "without it")
-
     from xfr_torch import models
 
     figures = (["1", "2", "3", "4", "5"] if "all" in args.figure
                else args.figure)
+    detector = None
+    if args.use_detector:
+        from xfr_torch import detection
+
+        detector = detection.FasterRCNN()
     dataset = FaceDirectory(args.dataset)
 
     wb = (models.create_wbnet(args.net, ebp_version=5)
@@ -358,7 +359,8 @@ def main(argv=None):
            if {"3", "4", "5"} & set(figures) else None)
 
     kw = dict(output_dir=args.output, n_subjects=args.subjects,
-              detector=None, wsebp_max_candidates=args.wsebp_max_candidates)
+              detector=detector,
+              wsebp_max_candidates=args.wsebp_max_candidates)
     outs = []
     if "1" in figures:
         outs += figure1(wb, dataset, **kw)

@@ -1,4 +1,10 @@
-"""Shared model-zoo helpers: parameter initialization and placement."""
+"""Shared model-zoo helpers: parameter initialization and placement.
+
+Not ported from ``xfr_tpu/models/common.py``: ``init_params_device``
+draws from the JAX PRNG, which torch cannot reproduce (the port's
+factory uses the numpy ``init_params``), and ``cast_params`` is
+``params_to(params, device, dtype=)`` here.
+"""
 
 from __future__ import annotations
 
