@@ -13,7 +13,9 @@ c.phase_device(); c.phase_build(); c.phase_lightcnn()"``:
   kernel     each kernel against its plain PyTorch version at the main
              path's shapes (N=64 masks, 19x19 grids, 224x224, scale 12):
              error, times (CUDA events, median), bound
-  precision  precision_scope: full float32 under "high", TF32 under None
+  precision  precision_scope: full float32 under "high", TF32 under None;
+             the host CPU's float32 conv and matmul against float64, timed,
+             and its oneDNN settings
   prior      the mean-EBP prior on the card vs the plain path on the CPU
              (ResNet-101 at full widths, 65,359 classes, layers (1,1,1,1))
   main       STRise on full ResNet-101+L2 with random weights: 6,500
@@ -30,7 +32,7 @@ c.phase_device(); c.phase_build(); c.phase_lightcnn()"``:
              one block per stage, B=2, float32 sweep
   whitebox   the same mix on full ResNet-101+L2, B=8, bfloat16 sweep: one
              warm-up mix with every host sync refused during the launches,
-             then 5 timed mixes launched and drained as bench.py does;
+             then 3 timed mixes launched and drained as bench.py does;
              maps/s, peak memory, each stage's CUDA-event time, the host
              drain, launch against mix time, and the sweep's launches per
              probe (one torch.profiler pass) and peak memory
@@ -95,7 +97,7 @@ c.phase_device(); c.phase_build(); c.phase_lightcnn()"``:
              cls_prob on the CPU's RoIs, each within 1e-4 of its max; the
              final detections where their scores are separated by 1e-4
   detect     FasterRCNN(conf_threshold=-1.0) at full width on the card:
-             one warm-up, 3 timed detect() calls, one with rotate_flags=7
+             one warm-up, 2 timed detect() calls, one with rotate_flags=7
              and padding 10; the stages of one pass (trunk+RPN and top by
              CUDA events; the host proposal layer and roi_pool, the
              copies each way by host clock), RoIs, peak memory, the same
@@ -103,6 +105,17 @@ c.phase_device(); c.phase_build(); c.phase_lightcnn()"``:
   eccv20     python -m xfr_torch.cli.eccv20 --figure 3 --subjects 2 on a
              synthetic JPEG corpus, full LightCNN-29 v2 on the card; then
              with --use-detector, detect() counted on every image
+  train_parity  one make_train_step step and one make_eval_step on
+             ResNet-101+L2 at full widths (65,359 classes) with one block a
+             stage, B=4, on the card ("high") and on the CPU, same weights,
+             in float64 and float32: loss, every leaf's update, hits; the
+             BN statistics bit-identical to their start
+  train      fine-tuning on full ResNet-101+L2: a B=32 batch through
+             TripletDataLoader and preprocess_resnet101, one warm-up and 5
+             timed steps under "high" and under None: step time (CUDA
+             events), images/s, losses, peak memory, one profiled step's
+             idle share; the same step through a (1, 1) mesh on a one-rank
+             NCCL group against the plain step; K1 must launch 0 times
 
 The last lines are the card's name and power limit, the "kernels" line
 and {"ok": true, "device": {...}}.
@@ -123,9 +136,10 @@ import numpy as np
 # tensor cores (the kernels here do plain float32 arithmetic)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12  # dense, on the tensor cores
 
 N_MASKS, CHUNK, SCALE, ELEMS, SIZE = 6500, 64, 12, 2, 224
-WB_B, WB_TOPK, WB_TIMED = 8, 32, 5  # bench.py's whitebox mix
+WB_B, WB_TOPK, WB_TIMED = 8, 32, 3  # bench.py's whitebox mix
 # bench.py's eval: 4 maps a probe group, 10 timed groups, 101 percentiles
 EVAL_MAPS, EVAL_GROUPS = 4, 10
 EVAL_PCT = np.unique(np.sort(np.append(np.arange(0, 100, 1), [0, 100])))
@@ -273,9 +287,50 @@ def phase_precision():
                                     / m64.abs().max())}
     after = (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32)
-    emit("precision", errors=rec, flags_restored=before == after)
+    emit("precision", errors=rec, flags_restored=before == after,
+         cpu=cpu_precision(x.cpu(), w.cpu(), a.cpu()))
     if before != after or max(rec["high"].values()) > 1e-5:
         raise AssertionError(f"precision_scope: {rec}, {before}->{after}")
+
+
+def cpu_precision(x, w, a):
+    """Whether this host's CPU runs float32 convolutions and products at
+    reduced precision (the float32 limits of models_parity and variants
+    are 3 times the CPU's own float32 error): the float32 conv and matmul
+    of precision's inputs against float64, each timed (median of 5), and
+    the oneDNN (mkldnn) settings."""
+    import torch
+    import torch.nn.functional as F
+
+    def timed(fn):
+        fn()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            out = fn()
+            times.append(time.perf_counter() - t0)
+        return out, float(np.median(times))
+
+    y32, conv32_s = timed(lambda: F.conv2d(x, w, padding=1))
+    y64, conv64_s = timed(lambda: F.conv2d(x.double(), w.double(), padding=1))
+    m32, mm32_s = timed(lambda: a @ a)
+    m64, mm64_s = timed(lambda: a.double() @ a.double())
+    mk = torch.backends.mkldnn
+    return {
+        "conv_rel_err": float((y32.double() - y64).abs().max()
+                              / y64.abs().max()),
+        "matmul_rel_err": float((m32.double() - m64).abs().max()
+                                / m64.abs().max()),
+        "conv_s": {"float32": conv32_s, "float64": conv64_s},
+        "matmul_s": {"float32": mm32_s, "float64": mm64_s},
+        "mkldnn": {"available": mk.is_available(), "enabled": mk.enabled,
+                   "deterministic": mk.deterministic,
+                   "fp32_precision": {
+                       k: getattr(getattr(mk, k, None), "fp32_precision",
+                                  None) for k in ("conv", "matmul")}},
+        "float32_matmul_precision": torch.get_float32_matmul_precision(),
+        "cpu_capability": torch.backends.cpu.get_cpu_capability(),
+        "threads": torch.get_num_threads()}
 
 
 def _images(seed, n):
@@ -442,7 +497,7 @@ def phase_tf32(make, st_high):
     kw = dict(use_pallas_blend=True, score_precision=None)
     check_map(make(4, **kw).launch_evaluate()())  # warm-up
     times, first = [], None
-    for seed in (1, 2, 3):
+    for seed in (1, 2):
         t0 = time.time()
         st = make(seed, **kw)
         check_map(st.launch_evaluate()())
@@ -450,7 +505,7 @@ def phase_tf32(make, st_high):
         times.append(time.time() - t0)
         first = first or st
     sel_h, sel_t = st_high.mask_scores > 0, first.mask_scores > 0
-    emit("tf32", map_s=times, maps_per_s=3 / sum(times),
+    emit("tf32", map_s=times, maps_per_s=len(times) / sum(times),
          score_precision=None,
          vs_high={"map_corr": float(np.corrcoef(
              first.saliency_map.ravel(), st_high.saliency_map.ravel())[0, 1]),
@@ -2063,7 +2118,7 @@ def phase_detect_parity():
                              "matched")
 
 
-def detect_stages(net, img, reps=3):
+def detect_stages(net, img, reps=2):
     """One detect() pass split into its stages, each the median of
     ``reps``: the blob on the host, the upload, trunk+RPN and the top by
     CUDA events, the device->host copies, the proposal layer and roi_pool
@@ -2119,7 +2174,7 @@ def detect_stages(net, img, reps=3):
 
 def phase_detect():
     """FasterRCNN(conf_threshold=-1.0) at full width on the card (default
-    800 px, max 1300) with ``detector_params``: one warm-up, 3 timed
+    800 px, max 1300) with ``detector_params``: one warm-up, 2 timed
     detect() calls, one with rotate_flags=7 and padding 10; the stages of
     one pass, full float32 and TF32; peak memory; K1 launches (0).  Also
     the unscaled numpy init's res4 magnitude and RoI count."""
@@ -2161,14 +2216,14 @@ def phase_detect():
             check_dets(dets)
         return walls, len(dets)
 
-    walls, n_dets = timed(3)
+    walls, n_dets = timed(2)
     peak = torch.cuda.max_memory_allocated()
     det.rotate_flags = 7
     walls7, n_dets7 = timed(1, padding=10)
     det.rotate_flags = 0
     stages = detect_stages(det.net, img)
     with detector_precision(None):
-        tf32_walls, _ = timed(3)
+        tf32_walls, _ = timed(1)
         tf32_stages = detect_stages(det.net, img)
     k1 = k1_launches() - k1_0
     emit("detect", image=list(DET_HW), raw_init=raw_rec, build_s=build_s,
@@ -2264,6 +2319,392 @@ def phase_eccv20():
                              f"for {det['images']} images")
 
 
+# the training phases: bench-free fine-tuning steps on ResNet-101+L2
+TRAIN_B, TRAIN_TIMED, TRAIN_CLASSES = 32, 5, 65359
+# card against CPU (train_parity) and the mesh step against the plain one
+# (train): float64 within these, float32 within the float32 limit or 3
+# times the float32 CPU's (plain step's) own distance from float64
+TRAIN_TOL = {"float64": {"loss_rtol": 1e-10, "leaf": 1e-8},
+             "float32": {"loss_rtol": 1e-5, "leaf": 1e-3}}
+
+
+def train_macs(graph, params, chw=(3, SIZE, SIZE)):
+    """Multiply-adds of one image through ``graph`` (convolutions and
+    linear layers, from the shapes on the meta device) and of its first
+    convolution, whose input needs no gradient."""
+    import torch
+    from xfr_torch.ebp.interpreter import forward_values
+
+    meta = {p: {k: torch.empty(v.shape, device="meta") for k, v in lv.items()}
+            for p, lv in params.items()}
+    vals = forward_values(graph, meta, torch.empty((1,) + chw, device="meta"))
+    macs, first = 0, None
+    for n in graph.nodes:
+        if n.op in ("conv2d", "linear"):
+            w = meta[n.pname]["w"]
+            m = vals[n.out].numel() * (w[0].numel() if n.op == "conv2d"
+                                       else w.shape[1])
+            macs += m
+            first = m if first is None else first
+    return macs, first
+
+
+def train_flops(graph, params, batch):
+    """Floating-point operations of one training step: the forward, the
+    weight gradients (the same products) and the input gradients (all but
+    the first convolution's)."""
+    macs, first = train_macs(graph, params)
+    return 2 * batch * (3 * macs - first)
+
+
+def leaf_updates(after, before):
+    """{pname.key: after - before} as float64 on the CPU."""
+    return {"%s.%s" % (p, k): (after[p][k].detach().double().cpu()
+                               - before[p][k].double().cpu())
+            for p in before for k in before[p]}
+
+
+def one_train_step(graph, params, x, y, device, dtype, mesh=None):
+    """One make_train_step step ("high") from ``params`` cast to ``dtype``:
+    (loss, every leaf's update, the step's params)."""
+    import torch
+    from xfr_torch.models import common
+    from xfr_torch.train.finetune import make_train_step
+
+    start = common.params_to(params, device, dtype=dtype)
+    step, init = make_train_step(graph, "fc2", mesh=mesh, device=device,
+                                 precision="high")
+    p, o = init(start)
+    p, o, loss = step(p, o, x.to(device=device, dtype=dtype), y)
+    if p["fc2"]["w"].is_cuda:
+        torch.cuda.synchronize()
+    return float(loss), leaf_updates(p, start), p
+
+
+def step_errors(got, want):
+    """``got``'s distance from ``want`` (each (loss, updates)): the loss's
+    relative error, each updated leaf's max error over its largest update
+    in ``want``, and whether the BN statistics' updates are all zero."""
+    leaf, frozen = {}, True
+    for name, u in want[1].items():
+        if name.endswith((".mean", ".var")):
+            frozen &= not got[1][name].any() and not u.any()
+            continue
+        leaf[name] = float((got[1][name] - u).abs().max()
+                           / u.abs().max().clamp(min=1e-30))
+    return {"loss_rel_err": abs(got[0] - want[0]) / abs(want[0]),
+            "leaf_errs": leaf, "bn_stats_bit_identical": bool(frozen)}
+
+
+def judged(errs, own32=None, per_leaf=False):
+    """step_errors' record with its limits, worst leaf and "ok": float64
+    (``own32`` None) within TRAIN_TOL["float64"]; float32 within
+    TRAIN_TOL["float32"] or 3 times ``own32``, a float32 reference's own
+    errors from float64: the loss's, and each leaf's own (``per_leaf``)
+    or else the largest leaf's for every leaf."""
+    tol = TRAIN_TOL["float64" if own32 is None else "float32"]
+    leaf = errs["leaf_errs"]
+    loss_lim = tol["loss_rtol"]
+    lims = dict.fromkeys(leaf, tol["leaf"])
+    if own32 is not None:
+        own = own32["leaf_errs"]
+        loss_lim = max(loss_lim, 3 * own32["loss_rel_err"])
+        lims = {k: max(v, 3 * (own[k] if per_leaf else max(own.values())))
+                for k, v in lims.items()}
+    worst = max(leaf, key=lambda k: leaf[k] / lims[k])
+    return {**errs, "loss_limit": loss_lim, "worst_leaf": worst,
+            "worst_leaf_err": leaf[worst], "worst_leaf_limit": lims[worst],
+            "median_leaf_err": float(np.median(list(leaf.values()))),
+            "leaves": len(leaf),
+            "ok": bool(errs["loss_rel_err"] <= loss_lim
+                       and errs["bn_stats_bit_identical"]
+                       and all(leaf[k] <= lims[k] for k in leaf))}
+
+
+def public(rec):
+    """A step_errors record without its per-leaf table (its largest entry
+    kept)."""
+    out = {k: v for k, v in rec.items() if k != "leaf_errs"}
+    out["max_leaf_err"] = max(rec["leaf_errs"].values())
+    return out
+
+
+def phase_train_parity():
+    """One make_train_step step and one make_eval_step on ResNet-101+L2 at
+    full widths (512-d fc1, 65,359 classes) with one block a stage, B=4
+    random 224x224 images, on the card under "high" and on the CPU, the
+    same numpy-init weights, in float64 and in float32.  Labels: the
+    first two rows take their argmax class at the start weights (so hits
+    count), the others are drawn from a seed.  Float64: the card's loss
+    and every updated leaf's update against the CPU's within
+    TRAIN_TOL["float64"].  Float32 is ill-conditioned at random weights
+    (the BN betas' gradients are sums over the batch and the plane that
+    cancel: the CPU's own float32 updates lie up to 1.4% of their max
+    from float64 here), so the card's float32 step is held against the
+    float64 CPU within TRAIN_TOL["float32"] or 3 times the CPU's own
+    float32 error (judged).  Equal hits; the BN statistics bit-identical
+    to their start on both devices in both dtypes.  Read on an NVIDIA
+    H100 80GB HBM3 at 700 W: float64 loss 3.4e-16, worst leaf 7.1e-13
+    (fc1.w); float32 loss 7.4e-8, worst leaf 1.36e-2 (layer4.0.bn1.beta)
+    against a limit of 4.1e-2; hits 2 and 2."""
+    import torch
+    from xfr_torch.ebp.interpreter import forward_clean
+    from xfr_torch.models import common
+    from xfr_torch.models import resnet101 as R101
+    from xfr_torch.train.finetune import make_eval_step
+
+    k1_0 = k1_launches()
+    graph, shapes, _ = R101.build_resnet101(layers=(1, 1, 1, 1))
+    params = common.init_params(shapes, seed=4)
+    rng = np.random.RandomState(8)
+    x = torch.as_tensor(rng.rand(4, 3, SIZE, SIZE) * 50, dtype=torch.float32)
+    y = torch.as_tensor(rng.randint(0, TRAIN_CLASSES, 4))
+    y[:2] = forward_clean(graph, params, x[:2])[graph.output_id].argmax(1)
+    steps, evals, secs = {}, {}, {}
+    f32, f64 = torch.float32, torch.float64
+    for dt in (f64, f32):
+        for dev in ("cpu", "cuda"):
+            t0 = time.time()
+            loss, upd, p = one_train_step(graph, params, x, y, dev, dt)
+            ev_loss, hits = make_eval_step(graph, device=dev,
+                                           precision="high")(
+                p, x.to(device=dev, dtype=dt), y)
+            steps[dev, dt] = (loss, upd)
+            evals[dev, dt] = {"loss": loss, "eval_loss": float(ev_loss),
+                              "hits": int(hits)}
+            secs[dev, dt] = time.time() - t0
+            del p
+    own32 = step_errors(steps["cpu", f32], steps["cpu", f64])
+    rec = {"float64": judged(step_errors(steps["cuda", f64],
+                                         steps["cpu", f64])),
+           "float32": judged(step_errors(steps["cuda", f32],
+                                         steps["cpu", f64]), own32)}
+    ok = all(r["ok"] for r in rec.values())
+    for dt in (f64, f32):
+        e_c, e_p = evals["cuda", dt], evals["cpu", dt]
+        r = rec[str(dt).replace("torch.", "")]
+        r["eval_loss_rel_err"] = abs(e_c["eval_loss"] - e_p["eval_loss"]) / \
+            abs(e_p["eval_loss"])
+        r["hits"] = [e_c["hits"], e_p["hits"]]
+        ok &= (e_c["hits"] == e_p["hits"]
+               and r["eval_loss_rel_err"] <= r["loss_limit"])
+    k1 = k1_launches() - k1_0
+    emit("train_parity", layers=[1, 1, 1, 1], classes=TRAIN_CLASSES, batch=4,
+         precision="high", steps={"%s_%s" % (d, str(t)[6:]): v
+                                  for (d, t), v in evals.items()},
+         float64=public(rec["float64"]), float32=public(rec["float32"]),
+         cpu_float32_own=public(own32),
+         seconds={"%s_%s" % (d, str(t)[6:]): v for (d, t), v in secs.items()},
+         tol=TRAIN_TOL, k1_launches=k1)
+    check_no_k1("train_parity", k1)
+    if not ok:
+        raise AssertionError(f"train_parity: card and CPU disagree: "
+                             f"{public(rec['float64'])} "
+                             f"{public(rec['float32'])}")
+
+
+def train_batch(tmp, seed=0):
+    """TRAIN_B images on the card through TripletDataLoader and
+    preprocess_resnet101: a synthetic filtered CSV of 8 subjects (mask 0),
+    each one probe and 3 refs of 250x250 JPEGs; each item gives its probe
+    and its 3 mates.  Labels drawn from ``seed``."""
+    import os
+
+    import pandas as pd
+    import PIL.Image
+    import torch
+    from xfr_torch.data import TripletDataLoader
+    from xfr_torch.models.resnet101 import preprocess_resnet101
+
+    rng = np.random.RandomState(seed)
+    rows = []
+    for sid in range(TRAIN_B // 4):
+        for k, trip in enumerate(("PROBE", "REF", "REF", "REF")):
+            names = []
+            for kind in ("orig", "inp"):
+                name = "s%d_%d_%s.jpg" % (sid, k, kind)
+                PIL.Image.fromarray((rng.rand(250, 250, 3) * 255).astype(
+                    np.uint8)).save(os.path.join(tmp, name))
+                names.append(name)
+            rows.append({"SUBJECT_ID": sid, "MASK_ID": 0, "TRIPLET_SET": trip,
+                         "OriginalFile": names[0], "InpaintingFile": names[1]})
+    csv = os.path.join(tmp, "filtered.csv")
+    pd.DataFrame(rows).to_csv(csv, index=False)
+    loader = TripletDataLoader(
+        csv, data_root=tmp,
+        transform=lambda im: preprocess_resnet101(im, device="cuda"))
+    xs = []
+    for i in range(len(loader)):
+        probe, mates, _ = loader[i]
+        xs += [probe, mates]
+    x = torch.cat(xs)
+    y = torch.as_tensor(rng.randint(0, TRAIN_CLASSES, len(x)), device="cuda")
+    return x, y
+
+
+def timed_train_steps(step, p, o, x, y, n):
+    """``n`` steps, each between two CUDA events (stream time, any wait
+    for the host included), the host clock around all ``n`` ended by a
+    synchronize; the losses read after the last."""
+    import torch
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ev[0].record()
+    for i in range(n):
+        p, o, loss = step(p, o, x, y)
+        ev[i + 1].record()
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(n)]
+    return p, o, {"step_ms": ms, "median_step_ms": float(np.median(ms)),
+                  "images_per_s": len(x) * 1e3 / float(np.median(ms)),
+                  "host_wall_s": wall, "losses": [float(v) for v in losses]}
+
+
+def train_step_profile(step, p, o, x, y):
+    """One step under torch.profiler: its wall time (host clock, ended by a
+    synchronize), the device busy time (every kernel, copy and set; one
+    stream), the idle share, kernel launches and device time by group."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from tools.torch_strise_profile import group_of
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        step(p, o, x, y)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    groups, busy_us, launches = {}, 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            busy_us += e.self_device_time_total
+            launches += e.count
+            g = groups.setdefault(group_of(e.key), {"ms": 0.0, "launches": 0})
+            g["ms"] += e.self_device_time_total / 1e3
+            g["launches"] += e.count
+    return {"step_s_profiled": wall, "device_busy_ms": busy_us / 1e3,
+            "idle_share": 1.0 - busy_us / 1e6 / wall,
+            "kernel_launches": launches, "groups": dict(
+                sorted(groups.items(), key=lambda kv: -kv[1]["ms"]))}
+
+
+def mesh_step_check(graph, params, x, y):
+    """make_train_step(mesh=make_mesh((1, 1))) on a one-rank NCCL group
+    (file:// rendezvous) against the plain step, one step each from the
+    same start weights and batch under "high": in float64 within
+    TRAIN_TOL["float64"]; in float32, each leaf within TRAIN_TOL["float32"]
+    of the float32 plain step or 3 times that step's own distance from
+    float64 for the leaf (the vocab-parallel loss sums in another order
+    than F.cross_entropy, and at random weights float32 rounding is
+    amplified in the leaves whose gradients cancel, as train_parity's
+    docstring says: at full depth the plain float32 step lies up to 100%
+    of a BN beta's largest update from float64).  Read on an NVIDIA H100
+    80GB HBM3 at 700 W: float64 worst leaf 3.3e-11 to 5.8e-11, loss 0;
+    float32 loss 0, worst leaf 1.18e-2 of its largest update against a
+    limit of 3.6e-2, median 0."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from xfr_torch.parallel import distributed as D
+    from xfr_torch.parallel.mesh import make_mesh
+
+    f32, f64 = torch.float32, torch.float64
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        D.initialize("file://" + os.path.join(tmp, "rendezvous"), 1, 0)
+        try:
+            backend = dist.get_backend()
+            mesh = make_mesh((1, 1), ("dp", "mp"))
+            for dt in (f64, f32):
+                for name, m in (("plain", None), ("mesh", mesh)):
+                    runs[name, dt] = one_train_step(graph, params, x, y,
+                                                    "cuda", dt, mesh=m)[:2]
+        finally:
+            dist.destroy_process_group()
+    own32 = step_errors(runs["plain", f32], runs["plain", f64])
+    r64 = judged(step_errors(runs["mesh", f64], runs["plain", f64]))
+    r32 = judged(step_errors(runs["mesh", f32], runs["plain", f32]), own32,
+                 per_leaf=True)
+    return {"backend": backend, "mesh": [1, 1],
+            "losses": {"%s_%s" % (n, str(t)[6:]): v[0]
+                       for (n, t), v in runs.items()},
+            "float64": public(r64), "float32": public(r32),
+            "plain_float32_own": public(own32),
+            "ok": bool(backend == "nccl" and r64["ok"] and r32["ok"])}
+
+
+def phase_train():
+    """Fine-tuning on full ResNet-101+L2 (create_wbnet("resnetv6_pytorch"):
+    348 nodes, 65,359 classes, its own fc2): a B=32 batch of 224x224
+    images from TripletDataLoader (train_batch), integer labels from a
+    seed.  One warm-up step, then TRAIN_TIMED timed steps under "high"
+    and TRAIN_TIMED under None (TF32), each from the same start weights:
+    step time by CUDA events, images/s, every step's loss (finite), peak
+    memory after a gc.collect() beside what was resident at the start,
+    and one profiled step's idle share and device time by group.  Then
+    the one-rank NCCL mesh step against the plain step
+    (mesh_step_check).  K1 must launch 0 times."""
+    import tempfile
+
+    import torch
+    from xfr_torch.models import create_wbnet
+    from xfr_torch.train.finetune import make_train_step
+
+    k1_0 = k1_launches()
+    t0 = time.time()
+    wb = create_wbnet("resnetv6_pytorch", device="cuda")
+    net_s = time.time() - t0
+    graph, params = wb.net.graph, wb.net.params
+    if (len(graph.nodes), wb.net.num_classes()) != (348, TRAIN_CLASSES):
+        raise AssertionError("ResNet-101+L2: %d nodes, %d classes" % (
+            len(graph.nodes), wb.net.num_classes()))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        x, y = train_batch(tmp)
+        torch.cuda.synchronize()
+        loader_s = time.time() - t0
+    flops = train_flops(graph, params, len(x))
+    rec = {"nodes": len(graph.nodes), "classes": wb.net.num_classes(),
+           "batch": list(x.shape), "net_s": net_s, "loader_s": loader_s,
+           "flops_per_step": flops,
+           "bound_ms": {"high": 1e3 * flops / F32_FLOPS_PER_S,
+                        "None": 1e3 * flops / TF32_FLOPS_PER_S}}
+    ok = True
+    for precision in ("high", None):
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        start_mem = torch.cuda.memory_allocated()
+        step, init = make_train_step(graph, "fc2", device="cuda",
+                                     precision=precision)
+        p, o = init(params)
+        t0 = time.time()
+        p, o, loss = step(p, o, x, y)
+        warm = {"loss": float(loss), "s": time.time() - t0}
+        p, o, r = timed_train_steps(step, p, o, x, y, TRAIN_TIMED)
+        r.update(warmup=warm, peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                 start_mem_bytes=start_mem,
+                 profile=train_step_profile(step, p, o, x, y))
+        ok &= bool(np.isfinite([warm["loss"]] + r["losses"]).all())
+        rec[str(precision)] = r
+        del p, o, step, init
+    rec["mesh_step"] = mesh_step_check(graph, params, x, y)
+    k1 = k1_launches() - k1_0
+    emit("train", **rec, k1_launches=k1)
+    check_no_k1("train", k1)
+    if not ok or not rec["mesh_step"]["ok"]:
+        raise AssertionError(f"train: non-finite losses or the mesh step "
+                             f"disagrees: {rec}")
+
+
 def main():
     import torch
 
@@ -2302,6 +2743,8 @@ def main():
     phase_detect_parity()
     phase_detect()
     phase_eccv20()
+    phase_train_parity()
+    phase_train()
     emit("done", seconds=time.time() - t_start)
     print(smi, flush=True)
     print(json.dumps({"kernels": [k1]}), flush=True)

@@ -19,9 +19,12 @@ filter, the match-threshold calibration and their CLIs) and its
 evaluation stage (protocol, blend+encode, analysis, the ``run_eval`` and
 ``hiding_game`` CLIs), the Faster R-CNN face detector (``detection``),
 ``data.transforms``, ``strface``, the ``eccv20`` figures (with
-``--use-detector``), ``unpack_dataset`` and ``utils.{params, misc,
-profiling}``.  ROADMAP.md lists what is still to be ported (the triplet
-loader, fine-tuning and the mesh forms).
+``--use-detector``), ``unpack_dataset``, ``utils.{params, misc,
+profiling}``, the triplet loader (``data.triplet``), fine-tuning
+(``train``) and ``parallel`` (process coordination, and a
+``torch.distributed`` device mesh with one process per card).  ROADMAP.md
+lists what is still to be ported (the inference side's in-process mesh
+forms).
 
 Not applicable, so not ported: the XLA compile cache
 (``xfr_tpu.__init__._enable_persistent_compile_cache``, ``cli/warm_cache``

@@ -5,7 +5,8 @@ eval/calculate_subject_dists_inpaintinggame.py).
     IJBC_PATH=IJBC python -m xfr_torch.cli.calc_subject_dists [options]
 
 Runs calc_mate_nonmate_dists over seeds (sharded across workers with
---shard-index/--num-shards, default shard 0 of 1, instead of the
+--shard-index/--num-shards, default the torch.distributed rank, else
+shard 0 of 1, instead of the
 reference's GPU pool) and writes dists npz files for
 calc_match_threshold.  The nets are built on the card; without one the
 run raises.

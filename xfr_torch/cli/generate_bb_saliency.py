@@ -10,8 +10,8 @@ through one BBPipeline across all jobs; any other net scores through its
 embeddings and the L2 similarity on the host (reference :73-101).  The
 nets are built on the card and STRise runs where its net lives; without
 a card the run raises.  Jobs are sharded like the whitebox CLI's
-(--shard-index/--num-shards, default shard 0 of 1).  The JAX CLI's
---mesh has no counterpart: one card.
+(--shard-index/--num-shards, default the torch.distributed rank, else
+shard 0 of 1).  The JAX CLI's --mesh is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations

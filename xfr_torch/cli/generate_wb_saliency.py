@@ -8,10 +8,10 @@ eval/generate_inpaintinggame_wb_saliency_maps_multigpu.py).
 One process drives one card; the nets are built there (``create_wbnet``)
 and without a card the run raises.  Runs over several cards or hosts
 partition the (net, subject, mask, image) job table deterministically
-with --shard-index/--num-shards (default: shard 0 of 1), keeping the
+with --shard-index/--num-shards (default: the torch.distributed rank
+and world size under ``torchrun``, else shard 0 of 1), keeping the
 reference's shared-filesystem idempotency (--shuffle for heterogeneous
-fleets).  The JAX CLI's --mesh has no counterpart, and nothing here asks
-a distributed runtime for its process index.
+fleets).  The JAX CLI's --mesh is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import sys
 import torch
 
 import xfr_torch
+from xfr_torch.parallel.distributed import process_info
 
 
 def build_job_table(nets, subject_ids, mask_ids, img_nums, data_dir):
@@ -73,9 +74,11 @@ def add_common_args(parser):
                         help="randomize job order (multi-machine runs over "
                              "a shared filesystem)")
     parser.add_argument("--shard-index", type=int, default=None,
-                        help="this worker's shard (default 0)")
+                        help="this worker's shard (default: the "
+                             "torch.distributed rank, else 0)")
     parser.add_argument("--num-shards", type=int, default=None,
-                        help="total workers (default 1)")
+                        help="total workers (default: the "
+                             "torch.distributed world size, else 1)")
     parser.add_argument("--data-dir", default=None,
                         help="inpainting-game dataset root")
     parser.add_argument("--saliency-dir", default=None,
@@ -83,9 +86,12 @@ def add_common_args(parser):
 
 
 def resolve_shards(args):
-    """(shard index, shard count) from --shard-index/--num-shards, else
+    """(shard index, shard count) from --shard-index/--num-shards, else the
+    torch.distributed rank and world size (a ``torchrun`` launch), else
     (0, 1)."""
-    return args.shard_index or 0, args.num_shards or 1
+    if args.shard_index is not None or args.num_shards is not None:
+        return args.shard_index or 0, args.num_shards or 1
+    return process_info()
 
 
 def main(argv=None):

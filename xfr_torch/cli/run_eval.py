@@ -4,7 +4,7 @@ xfr_tpu/cli/run_eval.py; reference: eval/run_inpainting_game_eval.py).
     python -m xfr_torch.cli.run_eval --cache-dir CACHE [options]
 
 The nets are built on the card (``create_wbnet``); without one the run
-raises.  The JAX CLI's ``--mesh`` has no counterpart: one card.
+raises.  The JAX CLI's ``--mesh`` is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations

@@ -1,2 +1,4 @@
-"""Data pipelines (port of xfr_tpu/data): ``transforms``.  The triplet
-loader (``xfr_tpu/data/triplet.py``) is not ported yet (ROADMAP.md)."""
+"""Data pipelines (port of xfr_tpu/data): ``transforms`` and the triplet
+loader."""
+
+from xfr_torch.data.triplet import TripletDataLoader  # noqa: F401

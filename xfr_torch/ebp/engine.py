@@ -687,6 +687,14 @@ class Whitebox:
         with all of them.  mode='percentile' injects each event's full
         prior in its own walk (one walk per candidate).
 
+        A quirk of the reference, not reproduced: under x64 the JAX
+        package's mode='percentile' raises ``ValueError: assignment
+        destination is read-only`` whenever a candidate's map is all zero
+        (``xfr_tpu/ebp/engine.py:858-863`` writes into the read-only view
+        ``np.asarray`` returns of a float64 device array; float32 converts
+        and copies, so float32 runs never hit it).  The port copies the
+        scores and sets that candidate's score to 0.
+
         Returns ``(smap, scores of the kept candidates, k_subtree)`` with
         k_subtree in ascending-score order."""
         if "percentile" not in mode:

@@ -47,10 +47,11 @@ def _relu(x):
     return torch.clamp(x, min=0)
 
 
-@torch.no_grad()
-def forward_clean(graph: GraphDef, params, x, keep: Optional[Sequence[int]]
-                  = None):
-    """Pass 1: ordinary forward.  Returns per-tensor values.
+def forward_values(graph: GraphDef, params, x,
+                   keep: Optional[Sequence[int]] = None):
+    """The ordinary forward, carrying autograd: per-tensor values.  The
+    trainer differentiates through it (``train.finetune``); every EBP
+    caller goes through ``forward_clean``.
 
     ``keep``: tensor ids the caller needs.  When given, the walk stops once
     they are computed and frees every other value after its last reader
@@ -75,6 +76,13 @@ def forward_clean(graph: GraphDef, params, x, keep: Optional[Sequence[int]]
     if want is not None:
         values = [v if t in want else None for t, v in enumerate(values)]
     return values
+
+
+@torch.no_grad()
+def forward_clean(graph: GraphDef, params, x, keep: Optional[Sequence[int]]
+                  = None):
+    """Pass 1: ``forward_values`` without autograd."""
+    return forward_values(graph, params, x, keep)
 
 
 @torch.no_grad()
