@@ -34,8 +34,8 @@ c.phase_device(); c.phase_build(); c.phase_lightcnn()"``:
              warm-up mix with every host sync refused during the launches,
              then 3 timed mixes launched and drained as bench.py does;
              maps/s, peak memory, each stage's CUDA-event time, the host
-             drain, launch against mix time, and the sweep's launches per
-             probe (one torch.profiler pass) and peak memory
+             drain, launch against mix time (the sweep's kernels by device
+             time: tools/torch_whitebox_profile.py)
   wsebp_bf16 one full-depth probe's weighted-subtree map, bfloat16 sweep
              against float32 sweep
   eval_parity the inpainting game's evaluation core (TwinClsBatch: the
@@ -97,7 +97,7 @@ c.phase_device(); c.phase_build(); c.phase_lightcnn()"``:
              cls_prob on the CPU's RoIs, each within 1e-4 of its max; the
              final detections where their scores are separated by 1e-4
   detect     FasterRCNN(conf_threshold=-1.0) at full width on the card:
-             one warm-up, 2 timed detect() calls, one with rotate_flags=7
+             one warm-up, 1 timed detect() call, one with rotate_flags=7
              and padding 10; the stages of one pass (trunk+RPN and top by
              CUDA events; the host proposal layer and roi_pool, the
              copies each way by host clock), RoIs, peak memory, the same
@@ -116,6 +116,14 @@ c.phase_device(); c.phase_build(); c.phase_lightcnn()"``:
              events), images/s, losses, peak memory, one profiled step's
              idle share; the same step through a (1, 1) mesh on a one-rank
              NCCL group against the plain step; K1 must launch 0 times
+  mesh       the inference side's mesh forms on full ResNet-101+L2: the
+             B=8 mix (bfloat16 sweep, host syncs refused during one mix's
+             launches), one STRise map through K1 at "high" and one eval
+             group, plain, then under a (1, 1) mesh on a one-rank NCCL
+             group, then under a (2, 1) mesh of two processes sharing the
+             card over gloo (K1 on 32 rows of each chunk, 102 launches a
+             rank); each against the plain calls (phase_mesh's limits),
+             with the combined maps/s of each form
 
 The last lines are the card's name and power limit, the "kernels" line
 and {"ok": true, "device": {...}}.
@@ -125,6 +133,7 @@ import contextlib
 import functools
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -203,9 +212,10 @@ def phase_build():
          libraries=[kernels.library_path("fused_blend")])
 
 
-def fused_blend_inputs(seed=0):
-    """Main-path-shaped inputs: a chunk of 64 sparse 19x19 grids with 2
-    zeros each, shifts in [0, 12), a 0..255 probe and its blur fill."""
+def fused_blend_inputs(seed=0, n=CHUNK):
+    """Main-path-shaped inputs: a chunk of ``n`` sparse 19x19 grids with 2
+    zeros each (64, or 32: a rank's rows of a chunk under a dp=2 mesh),
+    shifts in [0, 12), a 0..255 probe and its blur fill."""
     import torch
     from xfr_torch.blackbox import masks as M
     from xfr_torch.models.resnet101 import MEAN_RGB
@@ -213,8 +223,8 @@ def fused_blend_inputs(seed=0):
     g = torch.Generator(device="cuda").manual_seed(seed)
     gh = -(-SIZE // SCALE)
     probs = torch.full((gh, gh), 1.0 / (gh * gh), device="cuda")
-    grids = M.sample_sparse_grids(g, probs, CHUNK, ELEMS)
-    shifts = M.random_shifts(g, CHUNK, SCALE, "cuda")
+    grids = M.sample_sparse_grids(g, probs, n, ELEMS)
+    shifts = M.random_shifts(g, n, SCALE, "cuda")
     probe = torch.rand((SIZE, SIZE, 3), generator=g, device="cuda") * 255
     fill = M.gaussian_blur(probe, 0.04 * SIZE)
     mean = torch.as_tensor(MEAN_RGB, dtype=torch.float32, device="cuda")
@@ -253,13 +263,42 @@ def phase_kernel():
            "plain_ms": plain_ms, "bound_ms": 1e3 * max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "library_ms": None}
+    half = kernel_at(CHUNK // 2)
     emit("kernel", max_rel_err=max_rel, rtol=1e-4, atol=1e-3, ok=ok,
          bytes=nbytes, ops=ops, shapes={"grids": [n, gh, gw],
-                                        "out": list(out.shape)}, **rec)
-    if not ok:
+                                        "out": list(out.shape)},
+         **{"n%d" % (CHUNK // 2): half}, **rec)
+    if not ok or not half["ok"]:
         raise AssertionError("fused_blend kernel disagrees with its plain "
-                             f"version: max abs err {max_abs}")
+                             f"version: max abs err {max_abs}, at N="
+                             f"{CHUNK // 2} {half['max_abs_err']}")
     return rec
+
+
+def kernel_at(n):
+    """K1 against its plain version at ``n`` masks (the rows of a chunk a
+    rank launches under the mesh phase's dp=2): error and times."""
+    import torch
+    from xfr_torch.blackbox import fused_blend as FB
+
+    args = fused_blend_inputs(seed=1, n=n)
+    out = FB.fused_mask_blend_preprocess(*args, mask_scale=SCALE)
+    ref = FB.fused_mask_blend_preprocess_reference(*args, mask_scale=SCALE)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    grids, shifts, probe, fill, mean = args
+    nbytes = 4 * (grids.numel() + shifts.numel() + probe.numel()
+                  + fill.numel() + mean.numel() + out.numel())
+    return {"n": n, "max_abs_err": err, "bytes": nbytes,
+            "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                  n * SIZE * SIZE * 28 / F32_FLOPS_PER_S),
+            "ok": bool(torch.allclose(out, ref, rtol=1e-4, atol=1e-3)),
+            "ms": cuda_ms(lambda: FB.fused_mask_blend_preprocess(
+                *args, mask_scale=SCALE)),
+            "plain_ms": cuda_ms(
+                lambda: FB.fused_mask_blend_preprocess_reference(
+                    *args, mask_scale=SCALE)),
+            "tol": {"rtol": 1e-4, "atol": 1e-3}}
 
 
 def phase_precision():
@@ -767,45 +806,11 @@ def stage_event_ms(wb, w, mode="norelu"):
     return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
 
 
-def sweep_launches_per_probe(wb, w, mode="norelu"):
-    """Kernels and ATen operator calls of one B-probe sweep+select+merge,
-    from torch.profiler, per probe; and the sweep's peak memory (the net,
-    the probes and the ranking pass's outputs included)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    probes, em, en = w["probes"], w["em"], w["en"]
-    B = probes.shape[0]
-    wb.set_triplet_classifier_batch(em.expand(B, -1), en.expand(B, -1))
-    with subtree_mode(wb, mode):
-        scores, idxs, vals = wb._wsebp_grad_batch_fn()(wb.net.params, probes,
-                                                       True)
-        sweep = wb._wsebp_sweep_select_scan_fn(WB_TOPK, False)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            sweep(wb.net.params, probes, idxs.to(torch.int32), vals, scores)
-            torch.cuda.synchronize()
-    kernels = aten = 0
-    busy_us = 0.0
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            kernels += e.count
-            busy_us += e.self_device_time_total
-        elif e.key.startswith("aten::"):
-            aten += e.count
-    return {"kernels_per_probe": kernels / B, "aten_calls_per_probe":
-            aten / B, "device_busy_ms": busy_us / 1e3,
-            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
-
-
 def run_mix(wb, w, mode="norelu", shape=(112, 112), profile=True):
     """The mix as bench.py runs it: one warm-up mix with host syncs refused
     during the launches, then WB_TIMED mixes launched and drained
     double-buffered; then one mix alone, and (``profile``) its stages by
-    CUDA events and the sweep's launches per probe.  Returns the record."""
+    CUDA events.  Returns the record."""
     import torch
 
     B = w["probes"].shape[0]
@@ -854,7 +859,6 @@ def run_mix(wb, w, mode="norelu", shape=(112, 112), profile=True):
     rec = {}
     if profile:
         rec["stage_event_ms"] = stage_event_ms(wb, w, mode)
-        rec["sweep"] = sweep_launches_per_probe(wb, w, mode)
     k1 = k1_launches() - k1_0
     wb.net.reset_classifier()
     # as in bench.py, interval i ends with mix i's drain while mix i+1 is
@@ -2118,7 +2122,7 @@ def phase_detect_parity():
                              "matched")
 
 
-def detect_stages(net, img, reps=2):
+def detect_stages(net, img, reps=1):
     """One detect() pass split into its stages, each the median of
     ``reps``: the blob on the host, the upload, trunk+RPN and the top by
     CUDA events, the device->host copies, the proposal layer and roi_pool
@@ -2174,8 +2178,8 @@ def detect_stages(net, img, reps=2):
 
 def phase_detect():
     """FasterRCNN(conf_threshold=-1.0) at full width on the card (default
-    800 px, max 1300) with ``detector_params``: one warm-up, 2 timed
-    detect() calls, one with rotate_flags=7 and padding 10; the stages of
+    800 px, max 1300) with ``detector_params``: one warm-up, 1 timed
+    detect() call, one with rotate_flags=7 and padding 10; the stages of
     one pass, full float32 and TF32; peak memory; K1 launches (0).  Also
     the unscaled numpy init's res4 magnitude and RoI count."""
     import torch
@@ -2216,7 +2220,7 @@ def phase_detect():
             check_dets(dets)
         return walls, len(dets)
 
-    walls, n_dets = timed(2)
+    walls, n_dets = timed(1)
     peak = torch.cuda.max_memory_allocated()
     det.rotate_flags = 7
     walls7, n_dets7 = timed(1, padding=10)
@@ -2705,6 +2709,346 @@ def phase_train():
                              f"disagrees: {rec}")
 
 
+# ---------------------------------------------------------------------------
+# The inference side under a device mesh
+# ---------------------------------------------------------------------------
+
+MESH_TIMED = 2       # timed mixes and STRise maps are 1, eval groups 3
+MESH_REL = 1e-6      # the same rows through the same programs
+MESH_RANK_S = 420    # each rank of the two-process form
+
+
+def mesh_workloads(wb, w, ew, net_dict, mesh=None, strise_batch=CHUNK):
+    """The mesh phase's three workloads on the main path's net ``wb``
+    (full ResNet-101+L2, bfloat16 sweep), meshed or not: the 4-map mix
+    on ``w`` (one warm-up with every host sync refused during the
+    launches, then MESH_TIMED mixes one at a time; the largest difference
+    between the warm-up's maps and the last mix's, over each method's
+    largest value, is the card's own run-to-run spread), one STRise map
+    (6,500 masks, mean-EBP prior, "high", K1, chunks of
+    ``strise_batch``) with K1's launches counted from 0, and the eval
+    group of ``ew`` (a warm-up with host syncs refused during its
+    launches and flush, then 3 timed).  Under a mesh every timed run
+    starts at a barrier.  Returns (results: numpy arrays, record: times,
+    launches, peak)."""
+    import torch
+    import torch.distributed as dist
+
+    from xfr_torch.blackbox import fused_blend as FB
+
+    def start():
+        if mesh is not None:
+            dist.barrier()
+        torch.cuda.synchronize()
+        return time.time()
+
+    res, rec = {}, {}
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    first = drain_mix(wb, launch_mix(wb, w, refuse_syncs=True))
+    mix_s = []
+    for _ in range(MESH_TIMED):
+        t0 = start()
+        out = drain_mix(wb, launch_mix(wb, w))
+        torch.cuda.synchronize()
+        mix_s.append(time.time() - t0)
+    check_wb_maps(out)
+    wb.net.reset_classifier()
+    res.update(mix_results(out))
+    B = len(out["mean_ebp"])
+    rec["mix"] = {"s": mix_s, "maps_per_s": 4 * B * len(mix_s) / sum(mix_s),
+                  "run_to_run": mesh_errors(mix_results(first), res)}
+
+    t0 = start()
+    FB.fused_mask_blend_preprocess.launches = 0
+    st = make_main_path_strise(net_dict, 1, use_pallas_blend=True,
+                               score_precision="high", mesh=mesh,
+                               batch_size=strise_batch)
+    smap = st.launch_evaluate()()
+    torch.cuda.synchronize()
+    launches = FB.fused_mask_blend_preprocess.launches
+    check_map(smap)
+    res["st_map"], res["st_scores"] = smap, st.mask_scores
+    raw = st.combine_masks(st.mask_scores > 0)
+    rec["strise"] = {"s": time.time() - t0, "k1_launches": launches,
+                     "k1_rows": strise_batch // (
+                         1 if mesh is None else mesh.size(0)),
+                     "raw_range": float(raw.max() - raw.min())}
+
+    drain_eval_group(launch_eval_group(wb, ew, 0, refuse_syncs=True))
+    eval_s = []
+    for _ in range(3):
+        t0 = start()
+        got = drain_eval_group(launch_eval_group(wb, ew, 0))
+        eval_s.append(time.time() - t0)
+    for i, (cls, pg, pr) in enumerate(got):
+        res["eval_cls%d" % i] = np.asarray(cls)
+        res["eval_pg%d" % i], res["eval_pr%d" % i] = pg, pr
+    rec["eval"] = {"s": eval_s,
+                   "evals_per_s": EVAL_MAPS * len(eval_s) / sum(eval_s)}
+    rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    return res, rec
+
+
+def mix_results(out):
+    """A drained mix as arrays: each method's maps stacked, each probe's
+    selected subtrees padded with -1."""
+    res = {"mix_" + k: np.stack(out[k]) for k in (
+        "mean_ebp", "contrastive", "truncated_contrastive",
+        "weighted_subtree")}
+    res["mix_subtrees"] = np.array([k + [-1] * (WB_TOPK - len(k))
+                                    for k in out["subtrees"]])
+    return res
+
+
+def mesh_errors(got, want):
+    """{result: largest difference over the reference's largest value}
+    (0 or 1 for integer results: equal or not)."""
+    out = {}
+    for k, v in want.items():
+        g = np.asarray(got[k])
+        if v.dtype.kind in "biu":
+            out[k] = float(not np.array_equal(g, v))
+        else:
+            scale = max(float(np.abs(v).max()), 1e-30)
+            out[k] = float(np.abs(g.astype(np.float64) - v).max()) / scale
+    return out
+
+
+def mesh_judged(got, want, ws_rule):
+    """Whether ``got`` holds ``want``: the well-conditioned results (the
+    mean-EBP maps, STRise's scores and map, the eval's distances) within
+    MESH_REL of their largest value and the integer ones equal; the
+    contrastive and truncated-contrastive maps, differences of near-equal
+    distributions that the card's own run-to-run reduction order moves
+    (mesh_workloads' ``run_to_run``), at correlation 0.999 or more, as
+    wb_parity holds them; the weighted-subtree maps by ``ws_rule``:
+    "same" (within 1e-3 of their max, min(30, selected - 2) subtrees
+    shared, as wb_parity) or "bf16" (correlation above 0.98 and 2 of 3
+    subtrees shared, as wsebp_bf16 gates the bfloat16 sweep).  Returns
+    (ok, readings)."""
+    err = mesh_errors(got, want)
+    corr = {k: min(float(np.corrcoef(a.ravel(), b.ravel())[0, 1])
+                   for a, b in zip(got[k], want[k]))
+            for k in ("mix_contrastive", "mix_truncated_contrastive",
+                      "mix_weighted_subtree")}
+    shared, need = [], []
+    for a, b in zip(got["mix_subtrees"].tolist(),
+                    want["mix_subtrees"].tolist()):
+        a, b = {k for k in a if k >= 0}, {k for k in b if k >= 0}
+        shared.append(len(a & b))
+        need.append(min(30, len(b) - 2) if ws_rule == "same"
+                    else -(-2 * len(b) // 3))
+    well = [k for k in err if not k.startswith(("mix_contrastive",
+                                                 "mix_truncated",
+                                                 "mix_weighted",
+                                                 "mix_subtrees"))]
+    ok = (all(err[k] <= (0 if want[k].dtype.kind in "biu" else MESH_REL)
+              for k in well)
+          and corr["mix_contrastive"] >= 0.999
+          and corr["mix_truncated_contrastive"] >= 0.999
+          and all(s >= n for s, n in zip(shared, need))
+          and (err["mix_weighted_subtree"] <= 1e-3 if ws_rule == "same"
+               else corr["mix_weighted_subtree"] > 0.98))
+    return ok, {"rel_to_max": err, "min_corr": corr,
+                "subtrees_shared": shared, "subtrees_needed": need}
+
+
+def mesh_rank(rank, world, init_file, out_dir):
+    """One rank of the two-process form: a gloo group joined through
+    ``init_file`` (torch.distributed's own call: distributed.initialize
+    picks NCCL whenever a card is present), a (world, 1) mesh whose
+    collectives go through the host, the main path's net on the card and
+    the parent's inputs (``out_dir/inputs.pkl``), mesh_workloads; rank 0
+    writes the gathered results, each rank its record."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from xfr_torch.parallel.mesh import make_mesh
+
+    warnings.filterwarnings("error", message=".*performance drop.*")
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="file://" + init_file,
+                            world_size=world, rank=rank)
+    try:
+        with open(os.path.join(out_dir, "inputs.pkl"), "rb") as f:
+            w, ew = pickle.load(f)
+        w = {k: torch.as_tensor(v, device="cuda") for k, v in w.items()}
+        mesh = make_mesh((world, 1), ("dp", "mp"))
+        wb, net_dict = main_path_net()
+        wb.wsebp_dtype = torch.bfloat16
+        wb.use_mesh(mesh)
+        res, rec = mesh_workloads(wb, w, ew, net_dict, mesh)
+        rec["mesh_device"] = mesh.device_type
+        if rank == 0:
+            np.savez(os.path.join(out_dir, "results.npz"), **res)
+        with open(os.path.join(out_dir, "rank%d.json" % rank), "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_two_ranks(w, ew, world=2):
+    """The two-process form on the inputs ``w`` and ``ew``: ``world``
+    ranks sharing the card, each a fresh ``python3 -c`` of mesh_rank with
+    a time limit; a rank that fails, times out or exits non-zero fails
+    the phase, and every rank is stopped before this returns.  Returns
+    (rank 0's results, the ranks' records, seconds)."""
+    import pickle
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
+                        "LOCAL_RANK")}
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "inputs.pkl"), "wb") as f:
+            pickle.dump(({k: v.cpu().numpy() for k, v in w.items()}, ew), f)
+        init = os.path.join(tmp, "rendezvous")
+        logs = [open(os.path.join(tmp, "rank%d.log" % r), "w+")
+                for r in range(world)]
+        t0 = time.time()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c",
+             "import sys; sys.path.insert(0, %r); import chip_smoke as c; "
+             "c.mesh_rank(%d, %d, %r, %r)" % (here, r, world, init, tmp)],
+            stdout=logs[r], stderr=subprocess.STDOUT, cwd=here, env=env)
+            for r in range(world)]
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, MESH_RANK_S - (time.time() - t0)))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        seconds = time.time() - t0
+        tails = []
+        for f in logs:
+            f.seek(0)
+            tails.append(f.read()[-2000:])
+            f.close()
+        codes = [p.returncode for p in procs]
+        if any(c != 0 for c in codes):
+            raise AssertionError(f"mesh ranks exited {codes}: {tails}")
+        with np.load(os.path.join(tmp, "results.npz")) as d:
+            res = dict(d)
+        recs = []
+        for r in range(world):
+            with open(os.path.join(tmp, "rank%d.json" % r)) as f:
+                recs.append(json.load(f))
+    return res, recs, seconds
+
+
+def phase_mesh():
+    """The inference side's device-mesh forms on full ResNet-101+L2
+    (mesh_workloads: the B=8 mix, one STRise map through K1, one eval
+    group), in the two forms that fit one card, each on the plain calls'
+    inputs and judged against the plain calls' results (mesh_judged):
+
+    (a) a (1, 1) mesh on a one-rank NCCL group in this process: the same
+        rows through the same programs.
+    (b) two processes sharing the card (mesh_two_ranks), a (2, 1) mesh
+        over gloo, each rank computing on the card on its half of the
+        rows: 4 of the 8 probes, 32 of each 64-mask chunk (K1 at N=32,
+        102 launches a rank), half the blend steps.  Its exact reference
+        is the plain call at the shapes a rank runs (the mix on probes
+        0-3 and 4-7, STRise in chunks of 32; the eval's steps keep their
+        shape; the mix's mean-EBP is the full-classifier program bench.py
+        calls directly, which no package meshes, so each rank runs it
+        whole).  Against the plain calls at the full shapes cuDNN sees
+        other batch sizes: the bfloat16 weighted-subtree maps are then
+        held as wsebp_bf16 holds the bfloat16 sweep, and STRise's map to
+        phase_branches' limit (4 float32 steps of the normalized map plus
+        1e-3) with scores within 1e-6.
+
+    K1 must launch 102 times in (a) and on each rank of (b).  The record
+    has each form's rates: (b)'s maps/s counts the B maps the two ranks
+    make together, beside the plain one-process rate."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from xfr_torch.parallel import distributed as D
+    from xfr_torch.parallel.mesh import make_mesh
+
+    wb, net_dict = main_path_net()
+    wb.wsebp_dtype = torch.bfloat16
+    w = whitebox_workload(wb, WB_B)
+    ew = eval_workload(wb)
+    plain, plain_rec = mesh_workloads(wb, w, ew, net_dict)
+    # (b)'s exact references: the rows a rank runs, as plain calls
+    halves = [mix_results(drain_mix(wb, launch_mix(
+        wb, dict(w, probes=w["probes"][i:i + WB_B // 2]))))
+        for i in (0, WB_B // 2)]
+    wb.net.reset_classifier()
+    half_ref = {k: np.concatenate([h[k] for h in halves])
+                for k in halves[0] if k != "mix_mean_ebp"}
+    st = make_main_path_strise(net_dict, 1, use_pallas_blend=True,
+                               score_precision="high", batch_size=CHUNK // 2)
+    half_ref["st_map"] = st.launch_evaluate()()
+    half_ref["st_scores"] = st.mask_scores
+
+    with tempfile.TemporaryDirectory() as tmp:
+        D.initialize("file://" + os.path.join(tmp, "rendezvous"), 1, 0)
+        try:
+            backend = dist.get_backend()
+            wb.use_mesh(make_mesh((1, 1), ("dp", "mp")))
+            one, one_rec = mesh_workloads(wb, w, ew, net_dict, wb.mesh)
+            wb.use_mesh(None)
+        finally:
+            dist.destroy_process_group()
+    del wb, net_dict, st
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    two, two_recs, two_s = mesh_two_ranks(w, ew)
+
+    ok_a, read_a = mesh_judged(one, plain, "same")
+    ok_b, read_b = mesh_judged(two, {**plain, **half_ref}, "same")
+    ok_full, read_full = mesh_judged(
+        {k: two[k] for k in plain if k.startswith("mix_")},
+        {k: plain[k] for k in plain if k.startswith("mix_")}, "bf16")
+    # phase_branches' limit: 4 float32 steps near 1.0 of the normalized
+    # map, plus 1e-3
+    map_atol = 1e-3 + 4 * float(np.spacing(np.float32(0.5))) / \
+        plain_rec["strise"]["raw_range"]
+    st_full = {"score_max_abs_diff": float(np.abs(
+        two["st_scores"] - plain["st_scores"]).max()),
+        "map_max_abs_diff": float(np.abs(
+            two["st_map"] - plain["st_map"]).max())}
+    per_map = -(-N_MASKS // CHUNK)
+    checks = {
+        "a_same_rows": ok_a, "b_same_shapes": ok_b,
+        "b_full_shapes_mix": ok_full,
+        "b_full_shapes_strise": st_full["score_max_abs_diff"] <= 1e-6
+        and st_full["map_max_abs_diff"] <= map_atol,
+        "k1_one_rank": one_rec["strise"]["k1_launches"] == per_map,
+        "k1_each_rank": all(r["strise"]["k1_launches"] == per_map
+                            for r in two_recs),
+        "nccl": backend == "nccl",
+        "gloo_ranks": all(r["mesh_device"] == "cpu" for r in two_recs)}
+    emit("mesh", plain=plain_rec, one_rank_nccl=one_rec,
+         two_ranks_gloo=two_recs, two_ranks_s=two_s, backend=backend,
+         readings={"a_vs_plain": read_a, "b_vs_same_shapes": read_b,
+                   "b_vs_full_shapes": dict(read_full, strise=st_full)},
+         tol={"well_conditioned_rel_to_max": MESH_REL,
+              "contrastive_corr_min": 0.999,
+              "same_ws_rel_to_max": 1e-3, "full_ws_corr_min": 0.98,
+              "strise_score_atol": 1e-6, "strise_map_atol": map_atol},
+         maps_per_s={"plain": plain_rec["mix"]["maps_per_s"],
+                     "one_rank": one_rec["mix"]["maps_per_s"],
+                     "two_ranks_combined": two_recs[0]["mix"]["maps_per_s"]},
+         checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"mesh phase: {checks}")
+
+
 def main():
     import torch
 
@@ -2745,6 +3089,7 @@ def main():
     phase_eccv20()
     phase_train_parity()
     phase_train()
+    phase_mesh()
     emit("done", seconds=time.time() - t_start)
     print(smi, flush=True)
     print(json.dumps({"kernels": [k1]}), flush=True)

@@ -237,7 +237,7 @@ def test_entry_points_refuse_missing_card_and_mesh(nets):
     from xfr_torch.models.resnet101 import preprocess_resnet101
 
     kw = _kwargs(nets[1])
-    with pytest.raises(ValueError, match="mesh"):
+    with pytest.raises(ValueError, match="DeviceMesh with a 'dp' dim"):
         STRise(device="cpu", mesh=object(), **kw)
     assert STRise(device=None, use_gpu=False, **kw).device.type == "cpu"
     if torch.cuda.is_available():

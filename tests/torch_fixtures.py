@@ -274,3 +274,244 @@ def distributed_smoke_worker(rank, world, init_file, out_dir):
     with open(os.path.join(out_dir, "rank%d.json" % rank), "w") as f:
         json.dump(rec, f)
     dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# The inference side under a device mesh (tests/test_torch_mesh.py)
+# ---------------------------------------------------------------------------
+
+
+def toy_whitebox(params, num_classes, mode, dtype=None):
+    """The port's toy Whitebox (tests/fixtures.make_toy_wbnet's graph,
+    eps 1e-12, calibration 0.9 / 10.0) over ``params`` on the CPU, cast to
+    ``dtype`` if given.  Imports no JAX."""
+    g, enc, out = toy_graph()
+    params = {k: {kk: vv.clone() if dtype is None else vv.to(dtype)
+                  for kk, vv in v.items()} for k, v in params.items()}
+    net = WhiteboxNetwork(g.finalize(out), params, encode_tensor=enc,
+                          classifier_pname="fc2", num_classes=num_classes,
+                          preprocess=toy_preprocess, embed_dim=12,
+                          name="toynet")
+    wb = Whitebox(net, ebp_version=6, ebp_subtree_mode=mode, eps=1e-12)
+    wb.match_threshold, wb.platts_scaling = 0.9, 10.0
+    return wb
+
+
+MESH_T, MESH_T_MULTI = 13, 11  # blend families: one, and three, maps
+WS_TOPK = 3
+
+
+def mesh_strise(wb, d, mesh, **kw):
+    """STRise over the toy net ``wb`` on the CPU with the test's probe,
+    gallery and seed (``kw`` overrides)."""
+    from xfr_torch.blackbox.strise import STRise
+
+    base = dict(probe=d["st_probe"], refs=[d["st_probe"]],
+                gallery=[d["st_gal"]], black_box="resnetv6_pytorch",
+                net_dict={("resnetv6_pytorch", 6): wb,
+                          ("resnetv4_pytorch", None): wb},
+                prior_type="mean_ebp", num_masks=40, mask_scale=28,
+                num_mask_elements=2, mask_fill_type="blur", seed=5,
+                batch_size=16, device="cpu", mesh=mesh)
+    base.update(kw)
+    return STRise(**base)
+
+
+def _strise_injected(st, d, fused_finish=False):
+    """The evaluate() steps with the test's grids and shifts in place of
+    the drawn masks; ``fused_finish`` drains through the one-fetch
+    finisher of launch_evaluate's materialized-mask path."""
+    st.priors[st.prior_type]()
+    st._grids_dev = torch.from_numpy(d["st_grids"])
+    st._shifts_dev = torch.from_numpy(d["st_shifts"])
+    st._masks_dev_cache = None
+    st._masks_np = None
+    st.apply_masks()
+    if fused_finish:
+        st._score_masks_launch(want_fused_finish=True)()
+        return st
+    st.score_masks()
+    st.compute_saliency_map()
+    return st
+
+
+def mesh_entry_results(data, mesh=None):
+    """Every batched entry point of the inference side on the toy net,
+    under ``mesh`` (None: the plain port): {name: numpy array}.  The
+    inputs come from ``data`` (save_params' npz)."""
+    from xfr_torch.inpainting_game.protocol import TwinClsBatch
+
+    params, d = load_params(data)
+    nc, mode = int(d["num_classes"]), str(d["mode"])
+    res = {}
+
+    def fresh(dtype=None):
+        wb = toy_whitebox(params, nc, mode, dtype)
+        wb.batch_size = 8
+        return wb.use_mesh(mesh)
+
+    wb = fresh()
+    res["emb"] = wb.embeddings(d["probes"])
+    res["encode"] = wb.encode(d["probes"][:4]).numpy()
+    for B in (3, 5):
+        wb.set_triplet_classifier_batch(d["ems"][:B], d["ens"][:B])
+        x = d["probes"][:B]
+        res["ebp%d" % B] = np.stack(wb.ebp_batch(x))
+        res["ebp_mwp%d" % B] = np.stack(wb.ebp_batch(x, mwp=True))
+        res["con1_%d" % B] = np.stack(wb.contrastive_ebp_batch(x, 20))
+        con, trunc = wb.contrastive_ebp_batch_both(x, 20)
+        res["con%d" % B], res["trunc%d" % B] = np.stack(con), np.stack(trunc)
+        ws = wb.weighted_subtree_ebp_batch(x, topk=WS_TOPK,
+                                           subtree_mode=mode)
+        res["ws%d" % B] = np.stack([r[0] for r in ws])
+        res["ws_sel%d" % B] = np.array(
+            [r[3] + [-1] * (WS_TOPK - len(r[3])) for r in ws])
+        ws = wb.weighted_subtree_ebp_batch(x, topk=WS_TOPK,
+                                           subtree_mode=mode,
+                                           return_subtree_maps=True)
+        res["ws_host%d" % B] = np.stack([r[0] for r in ws])
+
+    # the per-probe paths in float64: the fused and host sweeps, rows
+    # over 'dp', and subtree_ebp's sweep
+    wb64 = fresh(torch.float64)
+    wb64.net.set_triplet_classifier(d["ems"][0].astype(np.float64),
+                                    d["ens"][0].astype(np.float64))
+    for path, host in (("fused", False), ("host", True)):
+        smap, _, scores, ks = wb64.weighted_subtree_ebp(
+            d["probe64"], 0, 1, topk=WS_TOPK, subtree_mode=mode,
+            return_subtree_maps=host)
+        res["ws_" + path], res["ws_%s_k" % path] = smap, np.asarray(ks)
+        res["ws_%s_scores" % path] = np.asarray(scores)
+    smap, scores, ks = wb64.subtree_ebp(d["probe64"], 0, 1, topk=2)
+    res["subtree"], res["subtree_k"] = smap, np.asarray(ks)
+
+    orig, inp = d["orig"], d["inp"]
+    res["counts"] = wb.launch_blend_embeddings_counts(
+        orig, inp, d["counts"], MESH_T)()
+    res["counts_multi"] = wb.launch_blend_embeddings_counts_multi(
+        orig, inp, d["counts_multi"], MESH_T_MULTI)()
+    res["blend_general"] = wb.launch_blend_embeddings(orig, inp,
+                                                      d["masks_general"])()
+    try:
+        wb.launch_blend_embeddings_counts_multi_pair(
+            [orig], [inp], d["counts_multi"], np.zeros(3, np.int32),
+            MESH_T_MULTI)
+        res["multi_pair_refused"] = np.asarray(False)
+    except ValueError:
+        res["multi_pair_refused"] = np.asarray(True)
+
+    batch = TwinClsBatch(wb, orig, inp, d["gal_o"], d["gal_i"],
+                         "percent-density", percentiles=d["pct"], seed=0)
+    fins = [batch.launch(s) for s in d["smaps"]]
+    batch.flush()
+    for i, fin in enumerate(fins):
+        cls, pg, pr = fin()
+        res["twin_cls%d" % i] = np.asarray(cls)
+        res["twin_pg%d" % i], res["twin_pr%d" % i] = pg, pr
+
+    for name, fused_blend in (("scan", False), ("k1", True)):
+        st = _strise_injected(mesh_strise(fresh(), d, mesh,
+                                          use_pallas_blend=fused_blend), d)
+        res["st_%s_ref" % name] = st.masked_probe_ref_scores
+        res["st_%s_scores" % name] = st.mask_scores
+        res["st_%s_map" % name] = st.saliency_map
+    st = _strise_injected(mesh_strise(fresh(), d, mesh), d,
+                          fused_finish=True)
+    res["st_fused_scores"], res["st_fused_map"] = (st.mask_scores,
+                                                   st.saliency_map)
+    st = mesh_strise(fresh(), d, mesh, use_pallas_blend=True, seed=9)
+    st.evaluate()
+    res["st_drawn_scores"], res["st_drawn_map"] = (st.mask_scores,
+                                                   st.saliency_map)
+    return res
+
+
+def mesh_entry_worker(rank, world, init_file, data, out_dir):
+    """One rank of a gloo group of ``world``: a (world, 1) mesh, every
+    entry point of mesh_entry_results, written to ``out_dir/rank<r>.npz``;
+    then the mesh helpers and a STRise whose ranks draw different masks
+    (seed = rank), which every rank must refuse."""
+    import torch.distributed as dist
+
+    from xfr_torch.parallel import distributed as D
+    from xfr_torch.parallel import mesh as M
+
+    D.initialize("file://" + init_file, world, rank)
+    mesh = M.make_mesh()
+    res = mesh_entry_results(data, mesh)
+
+    # the helpers: this rank's rows, their gather in rank order with the
+    # pad rows dropped (bool as well), the flag and checksum collectives
+    lo, hi = M.local_rows(mesh, 7)
+    rows = torch.arange(7 * 2, dtype=torch.float64).reshape(7, 2)
+    pad = torch.cat([rows, rows.new_full((hi * world - 7, 2), -1.0)])
+    res["local_rows"] = np.asarray([lo, hi])
+    res["gathered"] = M.gather_rows(mesh, pad[lo:hi], 7).numpy()
+    res["gathered_bool"] = M.gather_rows(
+        mesh, torch.tensor([rank % 2 == 0])).numpy()
+    res["all_true"] = np.asarray([M.all_true(mesh, True),
+                                  M.all_true(mesh, rank != 1)])
+    res["all_equal"] = np.asarray([M.all_equal(mesh, 7)[0],
+                                   M.all_equal(mesh, rank)[0]])
+    rep = M.replicate(mesh, {"a": {"w": torch.full((3,), float(rank))}},
+                      device="meta")
+    res["replicate_meta"] = np.asarray(rep["a"]["w"].device.type == "meta")
+    res["replicated"] = M.replicate(
+        mesh, {"a": {"w": torch.full((3,), float(rank))}})["a"]["w"].numpy()
+    params, d = load_params(data)
+    st = mesh_strise(toy_whitebox(params, int(d["num_classes"]),
+                                  str(d["mode"])), d, mesh,
+                     use_pallas_blend=True, seed=rank)
+    try:
+        st.evaluate()
+        res["draws_refused"] = np.asarray(False)
+    except RuntimeError as e:
+        res["draws_refused"] = np.asarray("different masks" in str(e))
+    np.savez(os.path.join(out_dir, "rank%d.npz" % rank), **res)
+    dist.destroy_process_group()
+
+
+MESH_CLI_METHODS = ["meanEBP_mode=all_v06_cpu",
+                    "contrastive_triplet_ebp_mode=all_v06_cpu",
+                    "weighted_subtree_triplet_ebp_mode=all,all_v06_top32_cpu",
+                    "inpaintingMask"]
+
+
+def mesh_cli_worker(rank, world, init_file, params_npz, data_dir, out):
+    """One rank of a gloo group running the generation CLIs on the toy net
+    (the factory patched; the dataset's net is "resnetv4_pytorch") with
+    --mesh auto and --mesh off, each rank into its own directories
+    ``out/<run>/rank<r>``: the whitebox CLI batched and serial, the
+    blackbox CLI, then run_eval under --mesh auto on rank 0's whitebox
+    maps."""
+    import torch.distributed as dist
+
+    import xfr_torch.models
+    from xfr_torch.cli import generate_bb_saliency, generate_wb_saliency
+    from xfr_torch.cli import run_eval
+    from xfr_torch.parallel import distributed as D
+
+    D.initialize("file://" + init_file, world, rank)
+    params, d = load_params(params_npz)
+    xfr_torch.models.create_wbnet = lambda name, **kw: toy_whitebox(
+        params, int(d["num_classes"]), str(d["mode"]))
+
+    def run_dir(name):
+        return os.path.join(out, name, "rank%d" % rank)
+
+    common = ["--net", "resnetv4_pytorch", "--data-dir", data_dir]
+    for mesh in ("auto", "off"):
+        for batch in ("8", "0"):
+            generate_wb_saliency.main(common + [
+                "--batch-size", batch, "--mesh", mesh,
+                "--saliency-dir", run_dir("wb%s_%s" % (batch, mesh))])
+        generate_bb_saliency.main(common + [
+            "--num-masks", "64", "--mesh", mesh,
+            "--saliency-dir", run_dir("bb_" + mesh)])
+    dist.barrier()  # rank 0's maps are all written
+    run_eval.main(common + [
+        "--saliency-dir", os.path.join(out, "wb8_auto", "rank0"),
+        "--cache-dir", run_dir("cache_auto"), "--output", run_dir("eval_auto"),
+        "--mask", "2", "5", "--seed", "7", "--mesh", "auto",
+        "--method"] + MESH_CLI_METHODS)
+    dist.destroy_process_group()

@@ -22,9 +22,10 @@ evaluation stage (protocol, blend+encode, analysis, the ``run_eval`` and
 ``--use-detector``), ``unpack_dataset``, ``utils.{params, misc,
 profiling}``, the triplet loader (``data.triplet``), fine-tuning
 (``train``) and ``parallel`` (process coordination, and a
-``torch.distributed`` device mesh with one process per card).  ROADMAP.md
-lists what is still to be ported (the inference side's in-process mesh
-forms).
+``torch.distributed`` device mesh with one process per card), and the
+inference side's mesh forms (``Whitebox.use_mesh``, ``STRise(mesh=)``, the
+generators' ``mesh=``, the CLIs' ``--mesh``): every rank of the group
+runs the same calls, computes its rows and gathers them.
 
 Not applicable, so not ported: the XLA compile cache
 (``xfr_tpu.__init__._enable_persistent_compile_cache``, ``cli/warm_cache``

@@ -7,6 +7,13 @@ triplet scoring all run on the STRise device; only user-supplied
 probes back to the host.  Masked probes are embedded once and scored
 against both the refs and the gallery in the same chunk.
 
+Under a ``torch.distributed`` DeviceMesh (``mesh=``) every rank draws the
+same masks from its seeded generator (checked with an all-gathered
+checksum at the drain), scores its share of them, and the drain gathers
+the scores: the chunk axis over 'dp' on the materialized-mask path (zero
+pad chunks), each chunk's rows over 'dp' on the fused-blend path (each
+rank launches the kernel on its batch_size / dp rows).
+
 With ``use_pallas_blend=True`` the scorer feeds each chunk of masks to the
 fused mask-blend kernel (``fused_blend.fused_mask_blend_preprocess``),
 which on the card is the hand-written Hopper kernel: the [N,H,W] masks are
@@ -21,6 +28,7 @@ matplotlib, imported inside the methods; it draws on the host.
 
 from __future__ import annotations
 
+import functools
 import sys
 
 import numpy as np
@@ -48,8 +56,10 @@ class STRise:
     ``use_pallas_blend`` keeps the JAX package's name: in the port it
     selects the Hopper fused-blend kernel for scoring.
     ``score_precision``: None allows TF32 in the scoring encode; "high"
-    and "highest" run it in full float32.  ``mesh`` is refused: the port
-    runs on one card.
+    and "highest" run it in full float32.  ``mesh``: a DeviceMesh with a
+    'dp' dim over which the scoring splits (every rank constructs the
+    same STRise and runs the same calls); ``batch_size`` rounds up to a
+    'dp' multiple, and the matcher net gets ``use_mesh``.
     """
 
     def __init__(self,
@@ -78,9 +88,11 @@ class STRise:
                  mesh=None,
                  score_precision=None):
         if mesh is not None:
-            raise ValueError(
-                "xfr_torch runs on one card: the 'mesh' argument (the JAX "
-                "package's multi-chip path) is not supported")
+            from xfr_torch.parallel.mesh import dp_size
+
+            dp = dp_size(mesh)
+            batch_size = -(-batch_size // dp) * dp
+        self.mesh = mesh
         if device is None:
             device = "cuda" if use_gpu else "cpu"
         self.device = resolve_device(device)
@@ -430,49 +442,106 @@ class STRise:
         self._score_masks_launch()()
 
     def _score_chunks(self, wb, probe, fill, ref_e, gal_e):
-        """Enqueue every scoring chunk; returns (ref scores, gallery
-        scores) device tensors over the padded mask count."""
+        """Enqueue this rank's scoring chunks.  Returns (ref scores,
+        gallery scores, gather): device tensors of this rank's rows, and
+        ``gather(t)``, which all-gathers such rows of every rank into mask
+        order over the padded mask count (the drain's collective).
+        Without a mesh: every chunk, and the identity."""
         from xfr_torch.blackbox.fused_blend import fused_mask_blend_preprocess
         from xfr_torch.models.resnet101 import MEAN_RGB, \
             preprocess_resnet101_batch
+        from xfr_torch.parallel import mesh as MS
 
-        n, bs = self.num_masks, self.batch_size
+        n, bs, mesh = self.num_masks, self.batch_size, self.mesh
+        nchunk = -(-n // bs)
         graph, enc = wb.net.graph, wb.net.encode_tensor
         params = wb.net.params
-        if self.use_pallas_blend and self._grids_dev is not None:
+        kernel = self.use_pallas_blend and self._grids_dev is not None
+        if mesh is None:
+            spans = [(c * bs, (c + 1) * bs) for c in range(nchunk)]
+        elif kernel:
+            # each chunk's rows over 'dp': bs / dp rows a launch
+            dp, r = MS.dp_size(mesh), mesh.get_local_rank("dp")
+            per = bs // dp
+            spans = [(c * bs + r * per, c * bs + (r + 1) * per)
+                     for c in range(nchunk)]
+        else:
+            # the chunk axis over 'dp', padded with zero-mask chunks
+            lo, hi = MS.local_rows(mesh, nchunk)
+            spans = [(c * bs, (c + 1) * bs) for c in range(lo, hi)]
+
+        if kernel:
             mean = torch.as_tensor(MEAN_RGB, dtype=torch.float32,
                                    device=self.device)
             grids = self._grids_dev.float().contiguous()
             shifts = self._shifts_dev.to(torch.int32).contiguous()
             probe, fill = probe.contiguous(), fill.contiguous()
 
-            def chunk(i):
-                g, s = grids[i:i + bs], shifts[i:i + bs]
-                if g.shape[0] < bs:  # pad: all-ones grids, zero shifts
-                    k = bs - g.shape[0]
-                    g = torch.cat([g, g.new_ones((k,) + tuple(g.shape[1:]))])
+            def chunk(i0, i1):
+                g, s = grids[i0:i1], shifts[i0:i1]
+                if g.shape[0] < i1 - i0:  # pad: all-ones grids, zero shifts
+                    k = i1 - i0 - g.shape[0]
+                    g = torch.cat([g, g.new_ones(
+                        (k,) + tuple(grids.shape[1:]))])
                     s = torch.cat([s, s.new_zeros((k, 2))])
                 return fused_mask_blend_preprocess(
                     g, s, probe, fill, mean, mask_scale=self.mask_scale)
         else:
             masks = self._masks_dev
 
-            def chunk(i):
-                m = masks[i:i + bs]
-                if m.shape[0] < bs:  # pad: all-zero masks
+            def chunk(i0, i1):
+                m = masks[i0:i1]
+                if m.shape[0] < i1 - i0:  # pad: all-zero masks
                     m = torch.cat([m, m.new_zeros(
-                        (bs - m.shape[0],) + tuple(m.shape[1:]))])
+                        (i1 - i0 - m.shape[0],) + tuple(masks.shape[1:]))])
                 m = m[..., None]
                 return preprocess_resnet101_batch(m * probe + (1.0 - m) * fill)
 
         rs, gs = [], []
         with precision_scope(self.score_precision):
-            for i in range(0, n, bs):
-                r, g = _encode_and_score(graph, enc, params, chunk(i),
+            for i0, i1 in spans:
+                r, g = _encode_and_score(graph, enc, params, chunk(i0, i1),
                                          ref_e, gal_e)
                 rs.append(r)
                 gs.append(g)
-        return torch.cat(rs), torch.cat(gs)
+
+        def gather(t):
+            if mesh is None:
+                return t
+            t = MS.gather_rows(mesh, t)
+            if kernel:  # [dp, chunk, row] -> [chunk, dp, row]
+                t = t.reshape(dp, nchunk, per, -1).transpose(0, 1)
+            return t.reshape(-1, t.shape[-1])
+
+        return torch.cat(rs), torch.cat(gs), gather
+
+    def _draws_checksum(self):
+        """An int64 device scalar over this STRise's masks (the grids and
+        shifts of the fused-blend path, else the materialized masks):
+        each mask's float32 bit patterns summed as integers, weighted by
+        its index, with two's-complement wrap.  Exact, so ranks that drew
+        the same masks give the same value in any summation order."""
+        parts = ((self._grids_dev, self._shifts_dev)
+                 if self._grids_dev is not None else (self._masks_dev,))
+        total = 0
+        for t in parts:
+            t = t.contiguous()
+            bits = t.view(torch.int32) if t.dtype == torch.float32 else t
+            rows = bits.reshape(t.shape[0], -1).sum(1, dtype=torch.int64)
+            total = total + (rows * torch.arange(
+                1, t.shape[0] + 1, device=t.device)).sum()
+        return total
+
+    def _check_same_draws(self, draws):
+        """Every rank of the mesh drew the same masks (an all-gather of
+        ``_draws_checksum``); raises otherwise."""
+        from xfr_torch.parallel.mesh import all_equal
+
+        same, vals = all_equal(self.mesh, draws)
+        if not same:
+            raise RuntimeError("the mesh's ranks drew different masks "
+                               f"(checksums {vals}): every rank must build "
+                               "STRise with the same seed and prior")
 
     def _score_masks_launch(self, want_fused_finish=False):
         """Enqueue the mask-scoring device work without syncing.
@@ -492,6 +561,8 @@ class STRise:
                 self.resnet_net = self._get_net(self.black_box,
                                                 ebp_version=6)
             wb = self.resnet_net
+            if self.mesh is not None and wb.mesh is not self.mesh:
+                wb.use_mesh(self.mesh)
             n = self.num_masks
             use_fused_blend = (self.use_pallas_blend and
                                getattr(self, "_grids_dev", None) is not None)
@@ -513,19 +584,38 @@ class STRise:
             probe = self._tensor(self.probe)
             ref_e_d = self._tensor(ref_e)
             gal_e_d = self._tensor(gal_e)
-            rs, gs = self._score_chunks(wb, probe, self._fill_dev, ref_e_d,
-                                        gal_e_d)
+            draws = None if self.mesh is None else self._draws_checksum()
+            rs, gs, gather = self._score_chunks(wb, probe, self._fill_dev,
+                                                ref_e_d, gal_e_d)
+
+            def gathered():
+                # every rank's scores in mask order (the drain's
+                # collectives), after the ranks' masks are held equal
+                if draws is not None:
+                    self._check_same_draws(draws)
+                return gather(rs), gather(gs)
 
             if fused:
                 flat_ref = ref_e_d.reshape(len(self.refs), -1)
                 flat_gal = gal_e_d.reshape(_collection_size(self.gallery),
                                            -1)
-                cts_d, npos_d, smap_d = self._select_combine_fn(n)(
-                    self._masks_dev, rs, gs, pe_kernel, flat_ref, flat_gal)
+                select = functools.partial(
+                    self._select_combine_fn(n), self._masks_dev,
+                    pe=pe_kernel, ref_e=flat_ref, gal_e=flat_gal)
+                if self.mesh is None:
+                    # enqueued now; under a mesh it follows the gather
+                    combined = select(rs, gs)
 
                 def fused_finish():
-                    self.masked_probe_ref_scores = rs.cpu().numpy()[:n]
-                    self.masked_probe_gallery_scores = gs.cpu().numpy()[:n]
+                    if self.mesh is None:
+                        rs_all, gs_all = rs, gs
+                        cts_d, npos_d, smap_d = combined
+                    else:
+                        rs_all, gs_all = gathered()
+                        cts_d, npos_d, smap_d = select(rs_all, gs_all)
+                    self.masked_probe_ref_scores = rs_all.cpu().numpy()[:n]
+                    self.masked_probe_gallery_scores = \
+                        gs_all.cpu().numpy()[:n]
                     pe = probe_fetch()
                     self.original_probe_ref_scores = \
                         _l2_similarity(pe, ref_e)
@@ -549,8 +639,9 @@ class STRise:
                 return drain
 
             def drain():
-                self.masked_probe_ref_scores = rs.cpu().numpy()[:n]
-                self.masked_probe_gallery_scores = gs.cpu().numpy()[:n]
+                rs_all, gs_all = gathered()
+                self.masked_probe_ref_scores = rs_all.cpu().numpy()[:n]
+                self.masked_probe_gallery_scores = gs_all.cpu().numpy()[:n]
                 self.mask_scores = self.triplet_scoring_fn()
 
             return drain

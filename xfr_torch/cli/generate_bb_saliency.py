@@ -9,23 +9,26 @@ The built-in matchers score masked probes with STRise's on-device scorer
 through one BBPipeline across all jobs; any other net scores through its
 embeddings and the L2 similarity on the host (reference :73-101).  The
 nets are built on the card and STRise runs where its net lives; without
-a card the run raises.  Jobs are sharded like the whitebox CLI's
+a card the run raises.  Jobs are sharded like the whitebox CLI's, and
+--mesh works as there: under ``torchrun`` with --mesh auto (the default)
+every rank runs every job, STRise splits each map's masks over the ranks
+and rank 0 writes; --mesh off gives each rank its own jobs
 (--shard-index/--num-shards, default the torch.distributed rank, else
-shard 0 of 1).  The JAX CLI's --mesh is not ported yet (ROADMAP.md).
+shard 0 of 1).
 """
 
 from __future__ import annotations
 
 import argparse
-import random
 import sys
 
 import numpy as np
 
 import xfr_torch
 from xfr_torch.cli.generate_wb_saliency import (add_common_args,
-                                                build_job_table,
-                                                resolve_shards, shard_jobs)
+                                                build_job_table, order_jobs,
+                                                resolve_mesh, resolve_shards,
+                                                shard_jobs)
 
 BUILTIN = ("resnetv4_pytorch", "resnetv6_pytorch")
 
@@ -74,12 +77,11 @@ def main(argv=None):
     from xfr_torch.models import create_wbnet
 
     data_dir = args.data_dir or xfr_torch.inpaintgame2_dir
+    mesh = resolve_mesh(args)
     jobs = build_job_table(args.WB_NET, args.SUBJECT_ID, args.MASK_ID,
                            args.filter_img_nums, data_dir)
-    shard_index, num_shards = resolve_shards(args)
-    jobs = shard_jobs(jobs, shard_index, num_shards)
-    if args.shuffle:
-        random.shuffle(jobs)
+    shard_index, num_shards = resolve_shards(args, mesh)
+    jobs = order_jobs(shard_jobs(jobs, shard_index, num_shards), args, mesh)
     print("worker %d/%d: %d jobs" % (shard_index, num_shards, len(jobs)))
 
     wbnets = {}
@@ -111,7 +113,7 @@ def main(argv=None):
                 ebp_ver=6, overwrite=args.overwrite, device=wb.device,
                 rise_scale=args.rise_scale, num_masks=args.num_masks,
                 prior_type=args.prior_type, data_dir=data_dir,
-                smaps_dir=args.saliency_dir, pipeline=pipeline,
+                smaps_dir=args.saliency_dir, mesh=mesh, pipeline=pipeline,
                 score_precision=(None if args.score_precision == "default"
                                  else args.score_precision))
         except Exception as e:

@@ -6,12 +6,21 @@ eval/generate_inpaintinggame_wb_saliency_maps_multigpu.py).
         --saliency-dir SMAPS [options]
 
 One process drives one card; the nets are built there (``create_wbnet``)
-and without a card the run raises.  Runs over several cards or hosts
-partition the (net, subject, mask, image) job table deterministically
-with --shard-index/--num-shards (default: the torch.distributed rank
-and world size under ``torchrun``, else shard 0 of 1), keeping the
-reference's shared-filesystem idempotency (--shuffle for heterogeneous
-fleets).  The JAX CLI's --mesh is not ported yet (ROADMAP.md).
+and without a card the run raises.  Under ``torchrun`` (WORLD_SIZE > 1)
+the process joins the group, NCCL with a card, each rank on the card of
+its LOCAL_RANK.
+
+--mesh auto (the default, as in the JAX CLI) then forms a 'dp' mesh over
+the group's ranks: every rank walks the whole job table, the nets split
+each batch's rows over the ranks and gather them, and only rank 0 writes
+the maps.  --mesh off keeps one job partition per rank instead: the
+(net, subject, mask, image) table is split deterministically by the
+torch.distributed rank and world size (without a group, shard 0 of 1).
+Explicit --shard-index/--num-shards partition in either form, keeping
+the reference's shared-filesystem idempotency (--shuffle for
+heterogeneous fleets).  These paths are launch-bound: a mesh divides the
+rows of each program between the ranks, not the launches, so --mesh off
+may be the faster form under torchrun.
 """
 
 from __future__ import annotations
@@ -24,7 +33,7 @@ import sys
 import torch
 
 import xfr_torch
-from xfr_torch.parallel.distributed import process_info
+from xfr_torch.parallel.distributed import initialize_from_env, process_info
 
 
 def build_job_table(nets, subject_ids, mask_ids, img_nums, data_dir):
@@ -83,15 +92,41 @@ def add_common_args(parser):
                         help="inpainting-game dataset root")
     parser.add_argument("--saliency-dir", default=None,
                         help="saliency map output root")
+    parser.add_argument("--mesh", default="auto", choices=["auto", "off"],
+                        help="auto: a 'dp' mesh over the torch.distributed "
+                             "group's ranks when it has at least 2 (every "
+                             "rank runs every job on its rows; rank 0 "
+                             "writes); off: one job shard per rank")
 
 
-def resolve_shards(args):
-    """(shard index, shard count) from --shard-index/--num-shards, else the
-    torch.distributed rank and world size (a ``torchrun`` launch), else
-    (0, 1)."""
+def resolve_mesh(args):
+    """The run's device mesh: join a ``torchrun`` group if one is
+    described, then with --mesh auto a 'dp' mesh over its ranks (None
+    with fewer than 2)."""
+    from xfr_torch.parallel.mesh import auto_mesh
+
+    initialize_from_env()
+    return auto_mesh() if args.mesh == "auto" else None
+
+
+def resolve_shards(args, mesh=None):
+    """(shard index, shard count) from --shard-index/--num-shards, else
+    (0, 1) under an active mesh (every rank walks the whole job table, so
+    the ranks' collectives pair the same jobs), else the torch.distributed
+    rank and world size (a ``torchrun`` launch), else (0, 1)."""
     if args.shard_index is not None or args.num_shards is not None:
         return args.shard_index or 0, args.num_shards or 1
+    if mesh is not None:
+        return 0, 1
     return process_info()
+
+
+def order_jobs(jobs, args, mesh):
+    """The shard's jobs, shuffled with --shuffle: under a mesh with a
+    shared seed, so that every rank takes them in one order."""
+    if args.shuffle:
+        (random.Random(0) if mesh is not None else random).shuffle(jobs)
+    return jobs
 
 
 def main(argv=None):
@@ -141,12 +176,11 @@ def main(argv=None):
     from xfr_torch.models import create_wbnet
 
     data_dir = args.data_dir or xfr_torch.inpaintgame2_dir
+    mesh = resolve_mesh(args)
     jobs = build_job_table(args.WB_NET, args.SUBJECT_ID, args.MASK_ID,
                            args.filter_img_nums, data_dir)
-    shard_index, num_shards = resolve_shards(args)
-    jobs = shard_jobs(jobs, shard_index, num_shards)
-    if args.shuffle:
-        random.shuffle(jobs)
+    shard_index, num_shards = resolve_shards(args, mesh)
+    jobs = order_jobs(shard_jobs(jobs, shard_index, num_shards), args, mesh)
     print("worker %d/%d: %d jobs" % (shard_index, num_shards, len(jobs)))
 
     ebp_ver = int(args.EBP_VER[0])
@@ -160,12 +194,14 @@ def main(argv=None):
         wb.wsebp_dtype = getattr(torch, args.wsebp_dtype)
         wb.contrastive_dtype = getattr(torch,
                                        args.contrastive_dtype or "float32")
-        return wb
+        return wb.use_mesh(mesh)
 
     if args.batch_size and args.batch_size > 0:
         # batched pipeline: the methods batch across jobs
         failures = []
-        for net_name in {j["net"] for j in jobs}:
+        # in job order (a set's order varies between processes, and the
+        # ranks of a mesh must take the nets in one order)
+        for net_name in dict.fromkeys(j["net"] for j in jobs):
             wb = make_wb(net_name)
             net_jobs = [(j["subject_id"], j["mask_id"], j["img_base"])
                         for j in jobs if j["net"] == net_name]

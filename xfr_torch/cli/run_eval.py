@@ -4,7 +4,11 @@ xfr_tpu/cli/run_eval.py; reference: eval/run_inpainting_game_eval.py).
     python -m xfr_torch.cli.run_eval --cache-dir CACHE [options]
 
 The nets are built on the card (``create_wbnet``); without one the run
-raises.  The JAX CLI's ``--mesh`` is not ported yet (ROADMAP.md).
+raises.  Under ``torchrun`` with ``--mesh auto`` (the default) the nets
+split every blend+encode program's steps over the group's ranks: every
+rank runs the whole analysis, and rank 0 writes the caches, results.csv
+and the plots.  ``--mesh off`` runs each rank alone on the whole
+analysis, as one process does.
 """
 
 from __future__ import annotations
@@ -61,6 +65,11 @@ def main(argv=None):
     parser.add_argument("--saliency-dir", dest="smap_root",
                         default=xfr_torch.inpaintgame_saliencymaps_dir)
     parser.add_argument("--data-dir", dest="data_dir", default=None)
+    parser.add_argument("--mesh", default="auto", choices=["auto", "off"],
+                        help="auto: split the blend-embedding programs "
+                             "over the torch.distributed group's ranks (at "
+                             "least 2; rank 0 writes); off: each process "
+                             "alone")
     args = parser.parse_args(argv)
 
     params = vars(args)
@@ -68,10 +77,12 @@ def main(argv=None):
     params["include_zero_saliency"] = False
     params["threshold_type"] = "percent-density"
 
+    from xfr_torch.cli.generate_wb_saliency import resolve_mesh
     from xfr_torch.inpainting_game.analysis import make_inpaintinggame_plots
     from xfr_torch.models import create_wbnet
 
-    net_dict = {net_name: create_wbnet(net_name)
+    mesh = resolve_mesh(args)
+    net_dict = {net_name: create_wbnet(net_name).use_mesh(mesh)
                 for net_name in params["NET"]}
     make_inpaintinggame_plots(net_dict=net_dict, params=params,
                               human_net_labels=human_net_labels_)

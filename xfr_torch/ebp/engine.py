@@ -24,8 +24,16 @@ plain function that enqueues its work on the current stream, and a
 ``lax.scan`` becomes a Python loop over its steps.  No launch path reads
 a device value on the host before its ``finish()``.  Every float32 EBP
 program runs with TF32 off (``precision_scope("high")``, the TPU's
-bf16_3x); ``encode`` and the blend+encode programs allow TF32.  The
-device mesh (``use_mesh``) is not ported: one card.
+bf16_3x); ``encode`` and the blend+encode programs allow TF32.
+
+The device mesh (``use_mesh``): the JAX package places one global batch
+over a mesh from one process.  Here every rank of a ``torch.distributed``
+group (one process per card) calls the same entry point with the same
+full inputs, runs the single-card body on its own rows (probes, blend
+steps, embedding rows, the candidate rows of a per-probe sweep), and
+``finish()`` all-gathers the equal, zero-padded shards in global order
+and drops the pad rows, so every rank returns the un-meshed result.  A
+launch issues no collective; the gather is the finish's.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ import torch
 
 from xfr_torch.ebp import interpreter as I
 from xfr_torch.graph import GraphDef
+from xfr_torch.parallel import mesh as MS
 from xfr_torch.utils.device import precision_scope
 
 
@@ -293,9 +302,105 @@ class Whitebox:
         # every method)
         self._upload_memo = {}
 
+        # Optional DeviceMesh (use_mesh): the batched entry points split
+        # their rows over its 'dp' axis.
+        self.mesh = None
+        # per-mesh row orders of the gathered sweeps, keyed by mesh_key
+        self._mesh_cache = {}
+
     @property
     def device(self):
         return self.net.device
+
+    # ------------------------------------------------------------------
+    # Device mesh: one process per card, each rank on its rows
+    # ------------------------------------------------------------------
+
+    def use_mesh(self, mesh):
+        """Attach a ``torch.distributed`` DeviceMesh with a 'dp' dim (None
+        detaches).  The params are broadcast from the mesh's first rank
+        and stay on this net's device (the mesh's device, "cpu" under
+        gloo, only carries the collectives); ``batch_size`` rounds up to a
+        'dp' multiple.  Every rank must then call the same entry points
+        with the same inputs: each computes its rows and ``finish()``
+        gathers them, so every rank returns the un-meshed result."""
+        dp = 1 if mesh is None else MS.dp_size(mesh)
+        self.mesh = mesh
+        if mesh is not None:
+            net = self.net
+            cls = net.params.get(net.classifier_pname)
+            net.params = self._replicated(net.params)
+            if net._orig_classifier is cls:
+                net._orig_classifier = net.params.get(net.classifier_pname)
+            elif net._orig_classifier is not None:
+                net._orig_classifier = self._replicated(net._orig_classifier)
+            self.batch_size = -(-self.batch_size // dp) * dp
+        return self
+
+    @property
+    def _dp(self):
+        return 1 if self.mesh is None else MS.dp_size(self.mesh)
+
+    def _replicated(self, tree):
+        """``tree`` broadcast from the mesh's first rank, on this net's
+        device (as it is without a mesh)."""
+        if self.mesh is None:
+            return tree
+        return MS.replicate(self.mesh, tree, device=self.device)
+
+    def _shard_rows(self, x):
+        """This rank's rows of ``x`` over 'dp' (the caller makes its
+        leading dim a 'dp' multiple); ``x`` itself without a mesh."""
+        if self.mesh is None:
+            return x
+        lo, hi = MS.local_rows(self.mesh, x.shape[0])
+        return x[lo:hi]
+
+    def _local_batch(self, x):
+        """(params, x) of this rank's probes of a padded probe batch under
+        the interleaved batch classifier: rows [lo, hi) of ``x`` and the
+        classifier's rows [2lo, 2hi) (each probe's mate and nonmate), so
+        the local body is the single-card body with B = hi - lo.  The
+        whole (params, x) without a mesh."""
+        params = self.net.params
+        if self.mesh is None:
+            return params, x
+        lo, hi = MS.local_rows(self.mesh, x.shape[0])
+        pname = self.net.classifier_pname
+        params = dict(params)
+        params[pname] = {k: v[2 * lo:2 * hi]
+                         for k, v in params[pname].items()}
+        return params, x[lo:hi]
+
+    def _gathered(self, out, n=None):
+        """The finish half of a batched program under a mesh (the JAX
+        package's ``_shmap_kernel``): ``out`` is the single-card body's
+        output (a tensor or a tuple of them) on this rank's rows; returns
+        ``gather()``, which all-gathers every rank's rows of each output
+        in global order and keeps the first ``n``.  The collective belongs
+        to the caller's ``finish()``.  Without a mesh, ``gather()``
+        returns ``out`` cut to ``n`` rows."""
+        outs = out if isinstance(out, tuple) else (out,)
+
+        def gather():
+            if self.mesh is not None:
+                got = tuple(MS.gather_rows(self.mesh, o, n) for o in outs)
+            else:
+                got = tuple(o if n is None else o[:n] for o in outs)
+            return got if isinstance(out, tuple) else got[0]
+
+        return gather
+
+    def _sweep_rows_order(self, n_buckets):
+        """Positions of candidate rows 0..n_cand-1 in the gathered outputs
+        of a row-sharded sweep (``I.row_shard_order``), cached per mesh."""
+        key = ("sweep_rows", MS.mesh_key(self.mesh), n_buckets)
+        order = self._mesh_cache.get(key)
+        if order is None:
+            order = self._mesh_cache[key] = torch.as_tensor(
+                I.row_shard_order(self._n_events - 1, n_buckets, self._dp),
+                device=self.device)
+        return order
 
     @property
     def _n_events(self):
@@ -766,27 +871,39 @@ class Whitebox:
     def set_triplet_classifier_batch(self, x_mates, x_nonmates):
         """Install an interleaved [2B, D] float32 classifier for B probes.
         Tensors already on the card are used as they are; numpy arrays are
-        copied there (a copy that waits for the card's queue)."""
+        copied there (a copy that waits for the card's queue).
+
+        Under a mesh, B is padded up to a multiple of the 'dp' size with
+        zero rows (padded probes give discarded zero maps) so the batch
+        splits evenly; returns the padded B."""
         dev = self.device
         m = torch.as_tensor(x_mates, dtype=torch.float32, device=dev)
         n = torch.as_tensor(x_nonmates, dtype=torch.float32, device=dev)
         B, D = m.shape
-        w = torch.stack([m, n], dim=1).reshape(2 * B, D)
+        pad = (-B) % self._dp
+        if pad:
+            m = torch.cat([m, m.new_zeros((pad, D))])
+            n = torch.cat([n, n.new_zeros((pad, D))])
+        w = torch.stack([m, n], dim=1).reshape(2 * (B + pad), D)
         self.net.params = dict(self.net.params)
         self.net.params[self.net.classifier_pname] = {"w": w}
-        self.net._num_classes = 2 * B
-        return B
+        self.net._num_classes = 2 * (B + pad)
+        return B + pad
 
     def _pad_probe_batch(self, x):
-        """The probe batch as float32 on the card; B must equal the
-        installed batch classifier's width (the JAX package pads only
-        under a device mesh, which the port does not have)."""
+        """The probe batch as float32 on the card, padded with zero probes
+        to the installed batch classifier's width (only under a mesh,
+        where that width is B rounded up to a 'dp' multiple; otherwise B
+        must equal it).  Returns (padded batch, B)."""
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
         B = x.shape[0]
-        if B != self.net.num_classes() // 2:
+        Bc = self.net.num_classes() // 2
+        if not (B == Bc or (self.mesh is not None and B < Bc)):
             raise ValueError(
                 "call set_triplet_classifier_batch matching the probe batch "
-                f"(B={B}, classifier for {self.net.num_classes() // 2})")
+                f"(B={B}, classifier for {Bc})")
+        if B < Bc:
+            x = torch.cat([x, x.new_zeros((Bc - B,) + tuple(x.shape[1:]))])
         return x, B
 
     def _batch_cotangents(self, B, kind):
@@ -802,8 +919,9 @@ class Whitebox:
         """Batched meanEBP over the installed batch triplet classifiers:
         x [B,C,H,W] -> list of B saliency maps."""
         x, B = self._pad_probe_batch(x)
-        Pn = self._batch_cotangents(B, "mean")
-        pooled, P_full = self._ebp_pooled_fn()(self.net.params, x, Pn)
+        params, xl = self._local_batch(x)
+        pooled, P_full = self._gathered(self._ebp_pooled_fn()(
+            params, xl, self._batch_cotangents(xl.shape[0], "mean")), n=B)()
         self.P = {self._n_events - 2: P_full}
         pooled = pooled.cpu().numpy().astype(np.float32)
         if mwp:
@@ -822,9 +940,11 @@ class Whitebox:
         """Batched (truncated-)contrastive EBP over the installed batch
         classifiers: x [B,C,H,W] -> list of B saliency maps."""
         x, B = self._pad_probe_batch(x)
-        Pns = self._batch_cotangents(B, "contrastive")
-        mwp = self._contrastive_batch_fn(truncate_percent is not None)(
-            self.net.params, x, Pns, float(truncate_percent or 0.0))
+        params, xl = self._local_batch(x)
+        mwp = self._gathered(self._contrastive_batch_fn(
+            truncate_percent is not None)(
+            params, xl, self._batch_cotangents(xl.shape[0], "contrastive"),
+            float(truncate_percent or 0.0)), n=B)()
         mwp = mwp.cpu().numpy().astype(np.float32)
         return [self._mwp_to_saliency(mwp[i]) for i in range(B)]
 
@@ -833,18 +953,22 @@ class Whitebox:
         forward-capture pair and one two-row backward walk (the two
         variants differ only in the final combine): (params, x, Pns,
         percentile) -> ([B,H,W], [B,H,W])."""
-        return self._contrastive_pair_fn(("contrastive", "truncated"))
+        both = self._contrastive_pair_fn(("contrastive", "truncated"))
+        return lambda *a: tuple(both(*a))
 
     def launch_contrastive_ebp_batch_both(self, x, truncate_percent=20):
         """Enqueue the batched contrastive+truncated program and return a
         ``finish()`` closure producing (contrastive maps, truncated maps).
-        Nothing waits for the card before ``finish()``."""
+        Nothing waits for the card before ``finish()``, which gathers the
+        ranks' rows under a mesh."""
         x, B = self._pad_probe_batch(x)
-        Pns = self._batch_cotangents(B, "contrastive")
-        contr_dev, trunc_dev = self._contrastive_both_fn()(
-            self.net.params, x, Pns, float(truncate_percent))
+        params, xl = self._local_batch(x)
+        gather = self._gathered(self._contrastive_both_fn()(
+            params, xl, self._batch_cotangents(xl.shape[0], "contrastive"),
+            float(truncate_percent)), n=B)
 
         def finish():
+            contr_dev, trunc_dev = gather()
             contr = contr_dev.cpu().numpy().astype(np.float32)
             trunc = trunc_dev.cpu().numpy().astype(np.float32)
             return ([self._mwp_to_saliency(contr[i]) for i in range(B)],
@@ -1043,22 +1167,27 @@ class Whitebox:
         ranking pass runs first; its outputs feed the candidate sweep as
         device tensors (no host round trip between the stages, and no host
         read before ``finish()``).  The sweeps run as one program sharing a
-        batch-B forward-capture pair."""
+        batch-B forward-capture pair.  Under a mesh each rank runs both
+        stages on its probes, the sweep at probe chunk 1 with the cascade
+        on (the JAX package's ``_wsebp_sweep_select_shmap_fn``), and
+        ``finish()`` gathers them."""
         x_pad, B = self._pad_probe_batch(x)
+        params, xl = self._local_batch(x_pad)
+        chunk = None if self.mesh is None else 1
         prev_mode = self._ebp_subtree_mode
         self._ebp_subtree_mode = subtree_mode
         try:
             scores_d, idxs_d, vals_d = self._wsebp_grad_batch_fn()(
-                self.net.params, x_pad,
-                gating=bool(do_mated_similarity_gating))
+                params, xl, gating=bool(do_mated_similarity_gating))
             merged_d, sel_d = self._wsebp_sweep_select_scan_fn(
-                topk, bool(do_max_subtree))(
-                self.net.params, x_pad, idxs_d.to(torch.int32), vals_d,
-                scores_d)
+                topk, bool(do_max_subtree), probe_chunk=chunk)(
+                params, xl, idxs_d.to(torch.int32), vals_d, scores_d)
+            gather = self._gathered((scores_d, merged_d, sel_d), n=B)
         finally:
             self._ebp_subtree_mode = prev_mode
 
         def finish():
+            scores_d, merged_d, sel_d = gather()
             prev = self._ebp_subtree_mode
             self._ebp_subtree_mode = subtree_mode
             try:
@@ -1096,11 +1225,13 @@ class Whitebox:
                 subtree_mode=subtree_mode,
                 do_mwp_to_saliency=do_mwp_to_saliency)()
         x, B = self._pad_probe_batch(x)
+        params, xl = self._local_batch(x)
         prev_mode = self._ebp_subtree_mode
         self._ebp_subtree_mode = subtree_mode
         try:
-            scores_d, idxs_d, vals_d = self._wsebp_grad_batch_fn()(
-                self.net.params, x, bool(do_mated_similarity_gating))
+            scores_d, idxs_d, vals_d = self._gathered(
+                self._wsebp_grad_batch_fn()(
+                    params, xl, bool(do_mated_similarity_gating)), n=B)()
             scores = scores_d.cpu().numpy().astype(np.float32)
             idxs = idxs_d.cpu().numpy()
             vals = vals_d.cpu().numpy().astype(np.float32)
@@ -1230,20 +1361,30 @@ class Whitebox:
         """(params, x, elems, vals) -> (P_img [n_cand,1,H,W], maxes
         [n_cand]): the full-candidate sweep in static event order (row k
         is event k), the batched walk ``I.ebp_backward_allevents`` without
-        the selection."""
+        the selection.  Under a mesh each rank walks its share of every
+        bucket's rows (cascade off, as in the JAX package's rows-over-'dp'
+        sweep) and the rows are gathered back into event order."""
         graph = self.net.graph
         mode, wb, eps = self._ebp_subtree_mode, self._ebp_with_bias, self.eps
         sweep_dt = self._wsebp_dtype
-        casc = bool(self.wsebp_cascade)
+        mesh = self.mesh
+        casc = bool(self.wsebp_cascade) and mesh is None
+        shard = None if mesh is None else (
+            mesh.get_local_rank("dp"), self._dp)
 
         def fn(params, x, elems, vals):
             with precision_scope("high"):
                 params, values, posvals = self._capture(params, x, sweep_dt)
-                return I.ebp_backward_allevents(
+                P_out, maxes = I.ebp_backward_allevents(
                     graph, params, values, posvals, elems,
                     vals.to(values[graph.input_id].dtype), subtree_mode=mode,
                     eps=eps, with_bias=wb, n_buckets=n_buckets,
-                    cascade=casc)
+                    cascade=casc, row_shard=shard)
+            if mesh is None:
+                return P_out, maxes
+            order = self._sweep_rows_order(n_buckets)
+            return (MS.gather_rows(mesh, P_out)[order],
+                    MS.gather_rows(mesh, maxes)[order])
 
         return fn
 
@@ -1251,7 +1392,18 @@ class Whitebox:
         """(params, x, elems, vals, scores) -> (merged [H,W], sel
         [n_cand]): one probe's full sweep, valid-subtree selection and
         weighted merge in one program, the batched sweep's body with one
-        probe."""
+        probe.  Under a mesh, the row-sharded sweep, gathered, then the
+        selection and merge."""
+        if self.mesh is not None:
+            sweep = self._wsebp_sweep_fn(n_buckets)
+            eps = self.eps
+
+            def fn(params, x, elems, vals, scores):
+                P_out, maxes = sweep(params, x, elems, vals)
+                return _wsebp_select_merge(P_out, maxes, scores, topk,
+                                           do_max, eps)
+
+            return fn
         batched = self._wsebp_sweep_select_scan_fn(topk, do_max, n_buckets,
                                                    probe_chunk=1)
 
@@ -1390,9 +1542,20 @@ class Whitebox:
 
     def encode(self, x):
         """Embedding forward for a [N,C,H,W] input batch (TF32 allowed, the
-        TPU's default precision)."""
+        TPU's default precision).  Under a mesh, a batch of a 'dp'
+        multiple splits its rows over 'dp' and the embeddings are
+        gathered (a collective every rank must join)."""
+        x = self._as_input(x)
+        if x.shape[0] % self._dp:  # whole on every rank
+            return self._encode_rows(x, x.shape[0])
+        return self._gathered(self._encode_rows(self._shard_rows(x),
+                                                x.shape[0]))()
+
+    def _encode_rows(self, x, bs):
+        """Embeddings of ``x`` in batches of ``bs``, TF32 allowed."""
         with precision_scope(None):
-            return self.net.encode(self._as_input(x))
+            return torch.cat([self.net.encode(x[i:i + bs])
+                              for i in range(0, x.shape[0], bs)])
 
     def embeddings(self, images, norm=True):
         """Batched embeddings from preprocessed [N,C,H,W] tensors/arrays, a
@@ -1429,9 +1592,10 @@ class Whitebox:
         if pad:
             imagesT = torch.cat([imagesT, imagesT.new_zeros(
                 (pad,) + tuple(imagesT.shape[1:]))])
-        embeds = [self.encode(imagesT[i:i + bs])
-                  for i in range(0, n + pad, bs)]
-        embeds = torch.cat(embeds).cpu().numpy()[:n]
+        # under a mesh, this rank's contiguous rows in batches of bs / dp
+        embeds = self._gathered(self._encode_rows(
+            self._shard_rows(imagesT), bs // self._dp), n=n)()
+        embeds = embeds.cpu().numpy()
 
         if norm:
             flat = embeds.reshape(embeds.shape[0], -1)
@@ -1497,31 +1661,59 @@ class Whitebox:
         pair p) step, build the [bs, 1, H, W] masks of rows t0..t0+bs-1
         from map m's enter-count plane (row t contains pixel p iff t < T
         and counts[p] >= T - t), blend pair p's probe toward its twin,
-        encode, and write the rows into ``out[m, t0:t0+bs]``.
+        encode, and write the rows into the step's block of the output.
 
         local(params, origs [P,C,H,W], inps, counts [M, H*W] uint8,
-        steps, n_maps) -> out [n_maps, rows, D], allocated once the
-        first step has given D."""
+        steps) -> out [len(steps) * bs, D] in step order, allocated once
+        the first step has given D."""
         graph, enc = self.net.graph, self.net.encode_tensor
 
-        def local(params, origs, inps, counts, steps, n_maps):
+        def local(params, origs, inps, counts, steps):
             c_all = counts.to(torch.int32)
             rows = torch.arange(bs, dtype=torch.int32,
                                 device=counts.device)[:, None]
-            n_rows = max(t0 for _, t0, _ in steps) + bs
             out = None
-            for m, t0, p in steps:
+            for i, (m, t0, p) in enumerate(steps):
                 blends = _threshold_blend(c_all[m][None], t0, T, origs[p],
                                           inps[p], rows)
                 with precision_scope(None):
                     e = I.forward_clean(graph, params, blends,
                                         keep=(enc,))[enc].reshape(bs, -1)
                 if out is None:
-                    out = e.new_empty((n_maps, n_rows, e.shape[1]))
-                out[m, t0:t0 + bs] = e
+                    out = e.new_empty((len(steps) * bs, e.shape[1]))
+                out[i * bs:(i + 1) * bs] = e
             return out
 
         return local
+
+    def _launch_counts_steps(self, origs, inps, counts_mat, pair_idx, T,
+                             norm):
+        """Every mono program's launch: map m runs ceil(T/bs) steps of bs
+        rows, bs = min(blend_batch, ceil(T/batch_size)*batch_size), in
+        map-major order; rows past T encode the pure original and are
+        dropped.  Under a mesh the flat step list is padded to a 'dp'
+        multiple with steps at t0 >= T (pure originals, discarded) and
+        each rank runs its contiguous run of steps.  ``finish()`` returns
+        [M, T, D] embeddings."""
+        M = counts_mat.shape[0]
+        bs = min(self.blend_batch, -(-T // self.batch_size) * self.batch_size)
+        nchunk = -(-T // bs)
+        steps = [(m, t0, int(pair_idx[m])) for m in range(M)
+                 for t0 in range(0, nchunk * bs, bs)]
+        n = len(steps)
+        steps += [(0, nchunk * bs, 0)] * ((-n) % self._dp)
+        if self.mesh is not None:
+            lo, hi = MS.local_rows(self.mesh, len(steps))
+            steps = steps[lo:hi]
+        gather = self._gathered(self._blend_encode_mono_multi_local(T, bs)(
+            self.net.params, origs, inps, self._upload(counts_mat), steps),
+            n=n * bs)
+
+        def finish():
+            out = gather().reshape(M, nchunk * bs, -1)[:, :T]
+            return self._finish_embeds(out, norm)()
+
+        return finish
 
     def launch_blend_embeddings_counts_multi_pair(
             self, orig_imTs, inpaint_imTs, counts_mat, pair_idx, T,
@@ -1535,23 +1727,22 @@ class Whitebox:
         stacks.  Map m runs ceil(T/bs) steps of bs rows, bs =
         min(blend_batch, ceil(T/batch_size)*batch_size); rows past T
         encode the pure original and are dropped.  ``finish()`` returns
-        [M, T, D] embeddings."""
+        [M, T, D] embeddings.  A meshed net refuses it, as the JAX
+        package does."""
+        if self.mesh is not None:
+            raise ValueError("launch_blend_embeddings_counts_multi_pair "
+                             "has no mesh form: detach the mesh")
         counts_mat = np.ascontiguousarray(counts_mat, np.uint8)
         pair_idx = np.ascontiguousarray(pair_idx, np.int32)
         assert T <= 255 and counts_mat.ndim == 2
         M = counts_mat.shape[0]
         assert len(inpaint_imTs) == len(orig_imTs) and pair_idx.shape == (M,)
-        bs = self.batch_size
         origs = torch.stack([self._device_put_memo(
             np.asarray(o, np.float32)) for o in orig_imTs])
         inps = torch.stack([self._device_put_memo(
             np.asarray(i, np.float32)) for i in inpaint_imTs])
-        bs_m = min(self.blend_batch, -(-T // bs) * bs)
-        steps = [(m, t0, int(pair_idx[m])) for m in range(M)
-                 for t0 in range(0, -(-T // bs_m) * bs_m, bs_m)]
-        out = self._blend_encode_mono_multi_local(T, bs_m)(
-            self.net.params, origs, inps, self._upload(counts_mat), steps, M)
-        return self._finish_embeds(out[:, :T], norm)
+        return self._launch_counts_steps(origs, inps, counts_mat, pair_idx,
+                                         T, norm)
 
     @staticmethod
     def _finish_embeds(out, norm):
@@ -1577,7 +1768,9 @@ class Whitebox:
         ``masks``: [T,H,W] boolean.  Monotone families (threshold masks
         by construction: lower threshold ⊇ higher) upload as a single
         [H*W] uint8 enter-count plane and run as one mono program;
-        general families fall back to bit-packed per-chunk programs."""
+        general families fall back to bit-packed per-chunk programs (under
+        a mesh each rank encodes its contiguous rows of the padded family
+        in chunks of batch_size / dp)."""
         masks = np.asarray(masks)
         assert masks.dtype == bool and masks.ndim == 3, (
             "blend_embeddings needs [T,H,W] boolean masks")
@@ -1598,10 +1791,11 @@ class Whitebox:
             bits = np.concatenate(
                 [bits, np.zeros((pad, bits.shape[1]), np.uint8)])
         fn = self._blend_encode_fn()
-        bits_d = self._upload(bits)
-        out = torch.cat([fn(self.net.params, orig, inp, bits_d[i:i + bs])
-                         for i in range(0, T + pad, bs)])[:T]
-        return self._finish_embeds(out, norm)
+        bits_d, step = self._shard_rows(self._upload(bits)), bs // self._dp
+        gather = self._gathered(torch.cat([
+            fn(self.net.params, orig, inp, bits_d[i:i + step])
+            for i in range(0, bits_d.shape[0], step)]), n=T)
+        return lambda: self._finish_embeds(gather(), norm)()
 
     def launch_blend_embeddings_counts(self, orig_imT, inpaint_imT,
                                        counts, T, norm=True):
@@ -1610,7 +1804,8 @@ class Whitebox:
         number of masks containing pixel p; mask t contains p iff
         counts[p] >= T - t).  Callers that derive masks from a threshold
         plane (inpainting-game eval) compute counts with one searchsorted
-        instead of materializing the [T,H,W] family."""
+        instead of materializing the [T,H,W] family.  Under a mesh the
+        row chunks, padded to a 'dp' multiple, split over 'dp'."""
         finish = self.launch_blend_embeddings_counts_multi(
             orig_imT, inpaint_imT, np.reshape(counts, (1, -1)), T, norm=norm)
         return lambda: finish()[0]
@@ -1621,11 +1816,17 @@ class Whitebox:
         single blend+encode program (``counts_mat``: [M, H*W] uint8
         enter-count planes).  ``finish()`` returns [M, T, D] embeddings.
         The inpainting-game analysis uses this to evaluate all of a
-        probe's saliency methods in one program."""
-        M = np.shape(counts_mat)[0]
-        return self.launch_blend_embeddings_counts_multi_pair(
-            [orig_imT], [inpaint_imT], counts_mat, np.zeros(M, np.int32), T,
-            norm=norm)
+        probe's saliency methods in one program.  Under a mesh the flat
+        (map, chunk) step list, padded to a 'dp' multiple, splits over
+        'dp'."""
+        counts_mat = np.ascontiguousarray(counts_mat, np.uint8)
+        assert T <= 255 and counts_mat.ndim == 2
+        M = counts_mat.shape[0]
+        origs = self._device_put_memo(np.asarray(orig_imT, np.float32))[None]
+        inps = self._device_put_memo(np.asarray(inpaint_imT,
+                                                np.float32))[None]
+        return self._launch_counts_steps(origs, inps, counts_mat,
+                                         np.zeros(M, np.int32), T, norm)
 
     def blend_embeddings(self, orig_imT, inpaint_imT, masks, norm=True):
         """Threshold-mask blend + encode on the card (synchronous form of

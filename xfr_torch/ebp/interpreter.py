@@ -307,6 +307,36 @@ def _sweep_event_rule(ev, mode, z, a, xp, eps, inj):
     return g2, p
 
 
+def _bucket_ranges(n_cand, n_buckets):
+    """Contiguous buckets of candidate rows (ascending event index)."""
+    n_buckets = max(1, min(n_buckets, n_cand))
+    size = -(-n_cand // n_buckets)
+    return [(lo, min(lo + size, n_cand)) for lo in range(0, n_cand, size)]
+
+
+def _zero_plane_rows(graph, values, n):
+    """``n`` zero rows of the sweep's output: the channel-summed saliency
+    plane [n, 1, H, W] in float32."""
+    v = values[graph.events[graph.n_events - 2].tensor]
+    return v.new_zeros((n, v.shape[0]) + tuple(v.shape[2:]),
+                       dtype=torch.float32)
+
+
+def row_shard_order(n_cand, n_buckets, count):
+    """For the outputs of ``ebp_backward_allevents(row_shard=(r, count))``
+    of ranks r = 0..count-1 concatenated in rank order: the position of
+    each candidate row 0..n_cand-1 in that concatenation."""
+    ranges = _bucket_ranges(n_cand, n_buckets)
+    pers = [-(-(hi - lo) // count) for lo, hi in ranges]
+    local = sum(pers)
+    order, off = [], 0
+    for (lo, hi), per in zip(ranges, pers):
+        for j in range(hi - lo):
+            order.append((j // per) * local + off + j % per)
+        off += per
+    return order
+
+
 @torch.no_grad()
 def ebp_backward_allevents(
     graph: GraphDef,
@@ -321,6 +351,7 @@ def ebp_backward_allevents(
     with_bias: bool = False,
     n_buckets: int = 1,
     cascade: bool = False,
+    row_shard=None,
 ):
     """Batched prior-injected backward: one walk row per candidate event.
 
@@ -344,9 +375,18 @@ def ebp_backward_allevents(
     ``cascade`` (with more than one bucket) merges the buckets' walks
     below their shared frontiers into ONE full-depth walk whose row batch
     grows bucket by bucket: identical per-row math (the bucketed walk is
-    its row-sliced restriction), ~(n_buckets+1)/2 x fewer walk ops.  The
-    JAX package's ``row_shard`` (candidate rows over a device mesh) has no
-    counterpart on one card.
+    its row-sliced restriction), ~(n_buckets+1)/2 x fewer walk ops.
+
+    ``row_shard=(index, count)`` walks only this rank's share of the
+    candidate rows, as the JAX package's sharding constraint splits every
+    bucket over the mesh's 'dp' axis: bucket [lo, hi) gives each of
+    ``count`` ranks ceil((hi-lo)/count) rows, rank ``index`` the
+    ``index``-th such run, and pads its run with zero rows to that length
+    (a slice of all rows would give one rank every deep walk).  Every
+    rank then returns the same shape; ``row_shard_order`` maps the ranks'
+    outputs, gathered in rank order, back to event order.  Cascade is off
+    under it (the growing row batch has no static split), and the
+    captures must not be probe-batched.
 
     Returns (P_out [n_events-1, {1|P}, H, W], maxes) where P_out is the
     channel-summed MWP at the saliency plane (event n_events-2) and maxes
@@ -358,15 +398,12 @@ def ebp_backward_allevents(
     n_cand = graph.n_events - 1
     kk = graph.n_events - 2
     batched = elems.ndim == 2
+    if row_shard is not None and batched:
+        raise ValueError("row_shard needs one probe's captures")
     node_params = _positive_node_params(graph, params, with_bias)
 
     ev_by_key = {(e.tensor, e.consumer, e.slot): e for e in graph.events}
-
-    # Contiguous buckets of candidate rows (ascending event index).
-    n_buckets = max(1, min(n_buckets, n_cand))
-    size = -(-n_cand // n_buckets)
-    bucket_ranges = [(lo, min(lo + size, n_cand))
-                     for lo in range(0, n_cand, size)]
+    bucket_ranges = _bucket_ranges(n_cand, n_buckets)
 
     outs = []
 
@@ -437,7 +474,7 @@ def ebp_backward_allevents(
         return any(ev_by_key[(t, ci, slot)].idx == kk
                    for (ci, slot, _, _) in graph.hooks_on(t))
 
-    if cascade and len(bucket_ranges) > 1:
+    if cascade and row_shard is None and len(bucket_ranges) > 1:
         # One full-depth walk whose candidate-row batch GROWS at each
         # bucket frontier: pad every live gradient with the joining
         # bucket's zero rows and keep walking.  Rows still join only at
@@ -464,6 +501,15 @@ def ebp_backward_allevents(
             fin(graph.input_id)
     else:
         for lo, hi in bucket_ranges:
+            if row_shard is not None:
+                # this rank's run of the bucket, padded below to ``per``
+                index, count = row_shard
+                per = -(-(hi - lo) // count)
+                n_out = len(outs)
+                lo, hi = lo + index * per, min(lo + (index + 1) * per, hi)
+                if lo >= hi:
+                    outs.append(_zero_plane_rows(graph, values, per))
+                    continue
             grads = [None] * graph.n_tensors
             fin = _make_finalize(grads, [lo, hi])
             for ni in range(graph.event_node[lo], -1, -1):
@@ -471,6 +517,9 @@ def ebp_backward_allevents(
                     break
             else:
                 fin(graph.input_id)
+            if row_shard is not None and hi - lo < per:
+                outs[n_out] = torch.cat([outs[n_out], _zero_plane_rows(
+                    graph, values, per - (hi - lo))])
 
     P_out = torch.cat(outs, dim=0)  # [n_cand, {1|P}, H, W]
     if batched:  # probe-batched: per-(row, probe) maxima

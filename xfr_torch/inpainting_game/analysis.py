@@ -11,6 +11,12 @@ JAX package's, so results interoperate.  The twin classification runs on
 the net's device (the card unless the caller built the net on the CPU);
 the IoU curves, thresholds and tables stay numpy on the host.  pandas,
 imageio and matplotlib are imported where the file I/O needs them.
+
+Under a device mesh (a net of ``net_dict`` with ``use_mesh``), every rank
+runs the same analysis: the ranks agree on each twin-classification
+cache hit (an all-reduce, so a launch whose finish gathers runs on every
+rank or on none), and only the first rank writes caches, maps, tables
+and plots.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import numpy as np
 import xfr_torch
 from xfr_torch import show
 from xfr_torch import inpainting_game as inpaintgame
+from xfr_torch.parallel.distributed import writes
 from xfr_torch.utils import cache_npz, cache_npz_launch
 from xfr_torch.utils.image import gaussian, resize
 
@@ -453,6 +460,20 @@ def _threshold_schedule(threshold_type):
                        "percent)" % threshold_type)
 
 
+def _mesh_of(net_dict):
+    """The device mesh of the first meshed net of ``net_dict``, or None."""
+    return next((n.mesh for n in net_dict.values()
+                 if getattr(n, "mesh", None) is not None), None)
+
+
+def _save_smap(path, smap):
+    """A backup method's map, written whole or not at all (a rank of a
+    mesh may read it while the first rank writes it)."""
+    tmp = "%s.%d.tmp.npz" % (path, os.getpid())
+    np.savez_compressed(tmp, saliency_map=smap)
+    os.replace(tmp, path)
+
+
 def run_inpaintinggame_analysis(hgame_thresholds, hgame_percentile, params,
                                 net_dict):
     """Per-probe cached twin-cls + IoU passes -> nonmate_classification
@@ -461,6 +482,9 @@ def run_inpaintinggame_analysis(hgame_thresholds, hgame_percentile, params,
     import pandas as pd
 
     from xfr_torch.models import create_wbnet
+    from xfr_torch.parallel.mesh import all_true
+
+    write = writes(_mesh_of(net_dict))
 
     output_dir = params["output_dir"]
     cache_dir = params["cache_dir"]
@@ -638,8 +662,8 @@ def run_inpaintinggame_analysis(hgame_thresholds, hgame_percentile, params,
                                 mask_pattern.format(**d))
                             smap = backupMethods(method, inpainted_region,
                                                  orig_imT, inp_imT, e)
-                            np.savez_compressed(smap_filename,
-                                                saliency_map=smap)
+                            if write:
+                                _save_smap(smap_filename, smap)
                         smap = resize(smap, orig_imT.shape[1:], order=0)
                         smap = smap / smap.sum()
                         return twin_batch.launch(smap)
@@ -714,7 +738,10 @@ def run_inpaintinggame_analysis(hgame_thresholds, hgame_percentile, params,
                             reprocess_=reprocess, cache_dir=cache_dir,
                             save_dict_={
                                 "hgame_thresholds": hgame_thresholds,
-                                "hgame_percentile": hgame_percentile})
+                                "hgame_percentile": hgame_percentile},
+                            write_=write,
+                            agree_=None if getattr(snet, "mesh", None) is None
+                            else (lambda hit, m=snet.mesh: all_true(m, hit)))
                         iou_fn = (
                             "inpainted-id-hiding-game-saliency-IoU-withcomp"
                             "-py3-{SUBJECT_ID}-{MASK_ID}-"
@@ -734,7 +761,8 @@ def run_inpaintinggame_analysis(hgame_thresholds, hgame_percentile, params,
                                 reprocess_=reprocess, cache_dir=cache_dir,
                                 save_dict_={
                                     "hgame_thresholds": hgame_thresholds,
-                                    "hgame_percentile": hgame_percentile})
+                                    "hgame_percentile": hgame_percentile},
+                                write_=write)
                     except IOError as e:
                         if not params["ignore_missing_saliency_maps"]:
                             raise e
@@ -760,8 +788,9 @@ def run_inpaintinggame_analysis(hgame_thresholds, hgame_percentile, params,
 
     drain_pending()
     nonmate_classification = _to_dataframe(classified_as_nonmate)
-    with open(os.path.join(cache_dir, "nonmate-cls.pkl"), "wb") as f:
-        pickle.dump(nonmate_classification, f)
+    if write:
+        with open(os.path.join(cache_dir, "nonmate-cls.pkl"), "wb") as f:
+            pickle.dump(nonmate_classification, f)
     return nonmate_classification, inpainting_v2_data
 
 
@@ -954,6 +983,8 @@ def make_inpaintinggame_plots(net_dict, params, human_net_labels=None):
                     (nonmate_classification["MASK_ID"] == right)))
             nonmate_classification.loc[sel, "MASK_ID"] = \
                 100 + 10 * left + right
+    if not writes(_mesh_of(net_dict)):
+        return nonmate_classification  # a mesh's first rank writes
 
     generate_plots(nonmate_classification, hgame_thresholds,
                    hgame_percentile, params, human_net_labels)

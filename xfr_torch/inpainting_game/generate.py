@@ -19,7 +19,11 @@ functions over in-memory jobs and a ``write(job, slug_key, smap)``
 callback (``prepare_wb_job``, ``launch_wb_group``, ``drain_wb_group``,
 ``run_wb_groups``), so they run without pandas or imageio; the file
 generators read the CSV and the images and write the files around them.
-The JAX package's ``mesh`` arguments have no counterpart: one card.
+
+Under a device mesh (a whitebox net with ``use_mesh``, or ``mesh=`` for
+the blackbox generators, which passes it to STRise) every rank of the
+``torch.distributed`` group runs the same jobs and joins each method's
+gathers; only the first rank writes the files.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import numpy as np
 import torch
 
 import xfr_torch
+from xfr_torch.parallel.distributed import writes
 from xfr_torch.show import create_save_smap, smap_cached
 from xfr_torch.utils.image import image_loader
 
@@ -223,7 +228,7 @@ def generate_wb_smaps(wb, net_name, img_base, subj_id, mask_id,
             create_save_smap(
                 slugs[slug_key], output_dir, overwrite, smap_fn=smap_fn,
                 probe_im=probe_im, probe_info=probe_row, mask_im=mask_im,
-                mask_id=mask_id)
+                mask_id=mask_id, write=writes(wb.mesh))
 
         result_calculated = False
         if method is None or method == "meanEBP":
@@ -257,12 +262,12 @@ def generate_wb_smaps(wb, net_name, img_base, subj_id, mask_id,
 def create_bbox(blackbox_fn, probe_im, mates, nonmates, rise_scale,
                 num_mask_elements, mask_fill_type, blur_sigma_percent,
                 device=None, num_masks=6500, seed=0,
-                prior_type="mean_ebp", score_precision=None):
+                prior_type="mean_ebp", mesh=None, score_precision=None):
     """STRise closure for one probe (reference:
     generate_blackbox_saliency.py:48-73); STRise runs on ``device`` (None:
-    the card).  ``bbox()`` evaluates and returns the map;
-    ``bbox.launch()`` enqueues the device work and returns a ``finish()``
-    that returns it."""
+    the card), its scoring split over ``mesh`` if one is given.
+    ``bbox()`` evaluates and returns the map; ``bbox.launch()`` enqueues
+    the device work and returns a ``finish()`` that returns it."""
     def build():
         from xfr_torch.blackbox.strise import STRise
 
@@ -273,7 +278,7 @@ def create_bbox(blackbox_fn, probe_im, mates, nonmates, rise_scale,
             mask_fill_type=mask_fill_type,
             blur_fill_sigma_percent=blur_sigma_percent,
             num_masks=num_masks, seed=seed, prior_type=prior_type,
-            device=device, score_precision=score_precision)
+            device=device, mesh=mesh, score_precision=score_precision)
         if isinstance(blackbox_fn, str):
             # builtin matcher name: the fused on-device scorer (embeds each
             # masked probe once for both galleries)
@@ -333,10 +338,11 @@ class BBPipeline:
 def generate_bb_smaps(bb_score_fn, convert_from_numpy, net_name, img_base,
                       subj_id, mask_id, ebp_ver, overwrite, device=None,
                       rise_scale=12, num_masks=6500, data_dir=None,
-                      smaps_dir=None, prior_type="mean_ebp",
+                      smaps_dir=None, prior_type="mean_ebp", mesh=None,
                       pipeline=None, score_precision=None):
     """Generate the blackbox RISE map for one (net, subject, image, mask)
-    (reference: generate_blackbox_saliency.py:76-227).
+    (reference: generate_blackbox_saliency.py:76-227).  Under ``mesh``
+    every rank scores its share of the masks and the first rank writes.
 
     ``pipeline``: optional BBPipeline shared across calls; when omitted a
     local one is created and fully drained before returning."""
@@ -387,7 +393,7 @@ def generate_bb_smaps(bb_score_fn, convert_from_numpy, net_name, img_base,
                     mask_fill_type=mask_fill_type,
                     blur_sigma_percent=blur_sigma_percent,
                     device=device, num_masks=num_masks,
-                    prior_type=prior_type,
+                    prior_type=prior_type, mesh=mesh,
                     score_precision=score_precision).launch()
 
                 def _write(finish=finish, fn=fn, output_dir=output_dir,
@@ -396,7 +402,7 @@ def generate_bb_smaps(bb_score_fn, convert_from_numpy, net_name, img_base,
                     create_save_smap(
                         fn, output_dir, overwrite, smap_fn=finish,
                         probe_im=probe_im, mask_im=mask_im, mask_id=mask_id,
-                        probe_info=probe_row)
+                        probe_info=probe_row, write=writes(mesh))
                     dt = time.time() - t0
                     print("Time: %dm %fs" % (int(dt // 60), dt % 60))
 
@@ -657,7 +663,8 @@ def generate_wb_smaps_batched(wb, net_name, jobs, subtree_mode_weighted,
         create_save_smap(
             slugs[slug_key], j["outdir"], True, smap_fn=lambda: smap,
             probe_im=j["probe_im"], probe_info=j["probe_row"],
-            mask_im=j["mask_im"], mask_id=j["mask_id"])
+            mask_im=j["mask_im"], mask_id=j["mask_id"],
+            write=writes(wb.mesh))
 
     done = run_wb_groups(wb, pend, resolve, write, batch_size,
                          subtree_mode_weighted, ebp_ver,

@@ -175,9 +175,9 @@ class TwinClsBatch:
     all of the probe's maps are launched; drain finishes afterwards.
     Maps that don't qualify for the batched counts path (soft masks,
     non-monotone families) fall back to the single-map launch
-    transparently.  Under a mesh the scanned program shards its step
-    sequence over 'dp' (see engine._blend_encode_mono_multi_shmap_fn),
-    so ``--mesh auto`` keeps the same program shape.
+    transparently.  Under a meshed net the multi-map program splits its
+    flat step list over 'dp' (``Whitebox._launch_counts_steps``), so
+    ``--mesh auto`` keeps the same program and the same results.
     """
 
     def __init__(self, snet, original_imT, inpaint_imT, original_gal_embed,

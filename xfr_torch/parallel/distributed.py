@@ -34,6 +34,19 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None):
         rank=-1 if process_id is None else process_id)
 
 
+def initialize_from_env():
+    """Join the process group that a ``torchrun`` launch describes in the
+    environment (WORLD_SIZE > 1, not yet joined): NCCL with a card, each
+    rank on the card of its LOCAL_RANK, else gloo.  A no-op otherwise, so
+    a CLI calls it unconditionally."""
+    if dist.is_initialized() or int(os.environ.get("WORLD_SIZE", "1")) < 2:
+        return
+    if torch.cuda.is_available():
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0"))
+                              % torch.cuda.device_count())
+    initialize("env://")
+
+
 def process_info():
     """(rank, world size) of the initialized process group, else (0, 1)."""
     if dist.is_available() and dist.is_initialized():
@@ -58,6 +71,13 @@ def partition_jobs(jobs, shard_index=None, num_shards=None, shuffle=False,
 
 def is_primary():
     return process_info()[0] == 0
+
+
+def writes(mesh=None):
+    """Whether this process writes a run's files: always without a device
+    mesh; under one, where every rank computes the same results, only the
+    first rank."""
+    return mesh is None or is_primary()
 
 
 _BARRIER_GEN: dict = {}

@@ -15,6 +15,15 @@ with this meaning:
   shard_batch            this rank's rows of the zero-padded batch, and
                          the batch's original length
   replicate              every tensor broadcast from the mesh's first rank
+                         (staged through the mesh's device, returned on the
+                         device asked for)
+  dp_size, local_rows    the size of an axis (refusing anything that is not
+                         a DeviceMesh with that dim), and this rank's
+                         [lo, hi) of a leading dim padded to its multiple
+  gather_rows            every rank's equal shard all-gathered in rank
+                         order, on the input's device, pad rows dropped
+  all_true, all_equal    an all-reduced flag, and whether every rank holds
+                         the same value (a checksum)
   classifier_tp_shardings  the rows of each leaf this rank holds: the
                          classifier's ``w``/``b`` rows split over the
                          ``mp`` axis (``torch.chunk``'s split), every other
@@ -22,14 +31,16 @@ with this meaning:
 
 A process group must be initialized first (``distributed.initialize``, or
 ``torchrun``'s environment, which ``init_device_mesh`` reads).  The mesh's
-device type is "cuda" under NCCL, else "cpu" (gloo).
+device type is "cuda" under NCCL, else "cpu" (gloo).  That device only
+carries the collectives: under gloo a rank may compute on a card and
+stage each collective through the host.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
-from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 
 def _device_type():
@@ -101,10 +112,11 @@ def shard_batch(mesh, x, axis="dp"):
     return x[r * per:(r + 1) * per], n
 
 
-def replicate(mesh, tree):
+def replicate(mesh, tree, device=None):
     """Every tensor of a (nested dict) tree broadcast from the mesh's
     first rank to all of its ranks: along each axis in turn, from the
-    axis's coordinate 0.  Returns new tensors on the mesh's device."""
+    axis's coordinate 0.  Returns new tensors on ``device`` (default the
+    mesh's device); the broadcast itself runs on the mesh's device."""
     from torch.utils._pytree import tree_map
 
     dev = _mesh_device(mesh)
@@ -115,9 +127,65 @@ def replicate(mesh, tree):
             group = mesh.get_group(name)
             dist.broadcast(t, src=dist.get_global_rank(group, 0),
                            group=group)
-        return t
+        return t if device is None else t.to(device)
 
     return tree_map(bcast, tree)
+
+
+def dp_size(mesh, axis="dp"):
+    """The size of the mesh's ``axis``; anything that is not a DeviceMesh
+    with that dim raises ValueError."""
+    if not isinstance(mesh, DeviceMesh) or \
+            axis not in (mesh.mesh_dim_names or ()):
+        raise ValueError(f"expected a DeviceMesh with a {axis!r} dim, got "
+                         f"{mesh!r}")
+    return mesh.size(mesh.mesh_dim_names.index(axis))
+
+
+def local_rows(mesh, n, axis="dp"):
+    """This rank's [lo, hi) of a leading dim of ``n`` rows zero-padded to a
+    multiple of the axis size, as ``shard_batch`` splits it: ceil(n /
+    size) rows a rank, the last ranks' rows partly or wholly padding."""
+    per = -(-n // dp_size(mesh, axis))
+    lo = mesh.get_local_rank(axis) * per
+    return lo, lo + per
+
+
+def _collective_view(mesh, t):
+    """``t`` as the collectives take it: on the mesh's device, contiguous,
+    bool as uint8 (not every backend reduces bool)."""
+    t = t.detach().to(_mesh_device(mesh))
+    return (t.to(torch.uint8) if t.dtype == torch.bool else t).contiguous()
+
+
+def gather_rows(mesh, x, n=None, axis="dp"):
+    """Every rank's [k, ...] shard of a leading dim (equal shapes on all
+    ranks), all-gathered along ``axis`` in rank order: [size * k, ...] on
+    ``x``'s device, cut to its first ``n`` rows (the pad rows of
+    ``local_rows`` go).  Under gloo a CUDA tensor is staged through the
+    host, which waits for the card."""
+    group = mesh.get_group(axis)
+    t = _collective_view(mesh, x)
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t, group=group)
+    out = torch.cat(parts).to(device=x.device, dtype=x.dtype)
+    return out if n is None else out[:n]
+
+
+def all_true(mesh, flag, axis="dp"):
+    """True when ``flag`` is true on every rank of ``axis`` (an all-reduce
+    every rank must call)."""
+    t = _collective_view(mesh, torch.tensor([int(bool(flag))]))
+    dist.all_reduce(t, op=dist.ReduceOp.MIN, group=mesh.get_group(axis))
+    return bool(t.item())
+
+
+def all_equal(mesh, value, axis="dp"):
+    """(every rank's scalar ``value`` equal, the values in rank order): a
+    checksum held across the ranks of ``axis``."""
+    t = _collective_view(mesh, torch.as_tensor(value).reshape(1))
+    vals = gather_rows(mesh, t, axis=axis).cpu().tolist()
+    return all(v == vals[0] for v in vals), vals
 
 
 def classifier_tp_shardings(mesh, params, classifier_pname, axis="mp"):

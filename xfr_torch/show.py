@@ -215,9 +215,11 @@ def smap_cached(method, output_dir, mask_id):
 
 
 def create_save_smap(method, output_dir, overwrite, smap_fn, mask_id,
-                     probe_im, probe_info, mask_im):
+                     probe_im, probe_info, mask_im, write=True):
     """Compute + write saliency overlay png and npz unless cached
-    (reference: show.py:196-223)."""
+    (reference: show.py:196-223).  ``write=False`` computes the map
+    without writing it (a rank of a device mesh other than the first:
+    its ``smap_fn`` joins the collectives)."""
     import imageio.v2 as imageio
 
     overlay_filename, npz_filename = smap_paths(method, output_dir, mask_id)
@@ -225,6 +227,8 @@ def create_save_smap(method, output_dir, overwrite, smap_fn, mask_id,
         # np.array, not asarray: smap_fn may hand back a read-only view
         # (of a tensor's numpy()); the normalization below is in-place
         smap = np.array(smap_fn(), np.float32)
+        if not write:
+            return
         smap -= smap.min()
         total = smap.sum()
         if total > 0:

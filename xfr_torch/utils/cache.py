@@ -66,8 +66,11 @@ def cache_npz(fn, fun, cache_dir, *args, **kwargs):
     kwargs:
       reprocess_: force recomputation.
       save_dict_: dict of arrays saved with (and validated against) the cache.
+      write_: False computes a miss without writing it (the ranks of a
+        device mesh other than the first).
     """
     fpath = _cache_path(fn, cache_dir)
+    write = kwargs.pop("write_", True)
     try:
         return _cache_load(fpath, kwargs.get("reprocess_"),
                            kwargs.get("save_dict_"))
@@ -75,30 +78,42 @@ def cache_npz(fn, fun, cache_dir, *args, **kwargs):
         kwargs.pop("reprocess_", None)
         save_dict = kwargs.pop("save_dict_", {})
         ret = fun(*args, **kwargs)
-        _cache_save(fpath, ret, save_dict)
+        if write:
+            _cache_save(fpath, ret, save_dict)
         return ret
 
 
 def cache_npz_launch(fn, launch_fun, cache_dir, reprocess_=False,
-                     save_dict_=None):
+                     save_dict_=None, write_=True, agree_=None):
     """Launch/finish variant of :func:`cache_npz` for overlapping device
     work with host work.  On a cache hit, returns a zero-arg finish that
     yields the cached value immediately.  On a miss, calls
     ``launch_fun()`` — which must return a zero-arg finish closure — NOW,
-    and returns a finish that drains it and writes the cache."""
+    and returns a finish that drains it and writes the cache (unless
+    ``write_`` is False).
+
+    ``agree_(hit) -> bool`` turns this process's hit into one every rank
+    of a device mesh shares (an all-reduce): a launch whose finish joins
+    collectives must run on every rank or on none."""
     fpath = _cache_path(fn, cache_dir)
     try:
         val = _cache_load(fpath, reprocess_, save_dict_)
-        return lambda: val
     except _CACHE_MISS:
-        inner = launch_fun()
+        val = None
+    hit = val is not None
+    if agree_ is not None:
+        hit = agree_(hit)
+    if hit:
+        return lambda: val
+    inner = launch_fun()
 
-        def finish():
-            ret = inner()
+    def finish():
+        ret = inner()
+        if write_:
             _cache_save(fpath, ret, save_dict_)
-            return ret
+        return ret
 
-        return finish
+    return finish
 
 
 def content_key(arr):
