@@ -21,11 +21,13 @@ c.phase_device(); c.phase_build(); c.phase_lightcnn()"``:
   main       STRise on full ResNet-101+L2 with random weights: 6,500
              masks, mean-EBP prior, blur fill 4%, scale 12, 2 elements,
              the fused-blend kernel, score_precision "high"; one warm-up
-             map, then 3 timed maps; the kernel must launch 102 times a map
+             map, then 2 timed maps; the kernel must launch 102 times a map
   branches   the same seed and prior on the materialized-mask branch:
              the same masks, agreeing scores and maps
-  tf32       the same maps with score_precision=None (TF32 allowed)
-  breakdown  where one map's time goes
+  uniform_draws  STRise's uniform-prior masks of seeds 0 and 1 on the card
+             and on the CPU: the same bits
+  tf32       seed 1's map with score_precision=None (TF32 allowed), twice
+  breakdown  where one map's time goes, on seed 1's map again
   wb_parity  bench.py's whitebox 4-map mix (mean-EBP, contrastive,
              truncated-contrastive, weighted-subtree top-32) on the card
              and on the CPU, same weights: ResNet-101 at full widths with
@@ -36,6 +38,10 @@ c.phase_device(); c.phase_build(); c.phase_lightcnn()"``:
              maps/s, peak memory, each stage's CUDA-event time, the host
              drain, launch against mix time (the sweep's kernels by device
              time: tools/torch_whitebox_profile.py)
+  whitebox_previous_form  one mix alone in the forms the port had before
+             one input gave one result on the card (previous_form) and in
+             the present ones, in turns: maps/s and each form's
+             run-to-run difference
   wsebp_bf16 one full-depth probe's weighted-subtree map, bfloat16 sweep
              against float32 sweep
   eval_parity the inpainting game's evaluation core (TwinClsBatch: the
@@ -124,6 +130,17 @@ c.phase_device(); c.phase_build(); c.phase_lightcnn()"``:
              card over gloo (K1 on 32 rows of each chunk, 102 launches a
              rank); each against the plain calls (phase_mesh's limits),
              with the combined maps/s of each form
+  demos      python -m xfr_torch.demo.whitebox --quick, python -m
+             xfr_torch.demo.blackbox (6,500 masks) and its --custom-bb
+             (650 masks), at full width, each into a temporary --outdir
+
+Every phase that calls a path twice on the same inputs holds the two
+results to the same bits (repeat_diff, check_repeats): one input, one
+result, on every run of the card.  The variants and train phases also
+time the previous form against the present one.  Two functions run
+alone, not by this script: phase_sources (which part of the previous
+form moved results from run to run) and phase_audit (the paths under
+torch.use_deterministic_algorithms(True)).
 
 The last lines are the card's name and power limit, the "kernels" line
 and {"ok": true, "device": {...}}.
@@ -148,6 +165,7 @@ F32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12  # dense, on the tensor cores
 
 N_MASKS, CHUNK, SCALE, ELEMS, SIZE = 6500, 64, 12, 2, 224
+MAIN_SEEDS = (1, 2)  # the main path's timed STRise maps
 WB_B, WB_TOPK, WB_TIMED = 8, 32, 3  # bench.py's whitebox mix
 # bench.py's eval: 4 maps a probe group, 10 timed groups, 101 percentiles
 EVAL_MAPS, EVAL_GROUPS = 4, 10
@@ -188,6 +206,100 @@ def cuda_ms(fn, reps=15, inner=10, warmup=3, hold_cycles=20_000_000):
     return float(np.median(times))
 
 
+def repeat_diff(a, b):
+    """The largest |a - b| between two results of one call on the same
+    inputs (nested dicts, lists and tuples of arrays, tensors, numbers or
+    None): 0.0 only when they are the same bit for bit, inf where their
+    structure, shape or type differs, the smallest float64 where the
+    values are equal and the bits are not (0.0 against -0.0)."""
+    import torch
+
+    if isinstance(a, dict) or isinstance(b, dict):
+        if not (isinstance(a, dict) and isinstance(b, dict)
+                and set(a) == set(b)):
+            return float("inf")
+        return max((repeat_diff(a[k], b[k]) for k in a), default=0.0)
+    if isinstance(a, (list, tuple)) or isinstance(b, (list, tuple)):
+        if not (isinstance(a, (list, tuple)) and isinstance(b, (list, tuple))
+                and len(a) == len(b)):
+            return float("inf")
+        return max((repeat_diff(x, y) for x, y in zip(a, b)), default=0.0)
+    if a is None or b is None:
+        return 0.0 if a is b else float("inf")
+
+    def host(t):
+        if isinstance(t, torch.Tensor):
+            t = t.detach()
+            # bfloat16 widens to float32 exactly
+            t = t.float() if t.dtype == torch.bfloat16 else t
+            return t.cpu().numpy()
+        return np.asarray(t)
+
+    a, b = host(a), host(b)
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return float("inf")
+    if a.tobytes() == b.tobytes():
+        return 0.0
+    d = float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max())
+    return d if d > 0 else float(np.finfo(np.float64).tiny)
+
+
+def check_repeats(phase, diffs):
+    """Raise unless every repeat of ``diffs`` ({name: repeat_diff}) read
+    0: one input, one result, on every run of the card."""
+    bad = {k: v for k, v in diffs.items() if v != 0.0}
+    if bad:
+        raise AssertionError(f"{phase}: repeats on the same inputs differ: "
+                             f"{bad}")
+
+
+@contextlib.contextmanager
+def previous_form(maxpool=True, cudnn=True):
+    """The forms the port had before one input gave one result on the
+    card, swapped in for a block so that one call can measure both (as
+    detector_precision swaps the detector's private precision):
+    ``maxpool``, the row-batched max-pool vjp as a scatter-add, whose
+    float atomics sum overlapping windows in the card's order; ``cudnn``,
+    cuDNN's algorithm flags as the caller left them (deterministic off),
+    so that cuDNN may pick a backward-data or weight-gradient algorithm
+    that sums with atomics.  Nothing else changes."""
+    import torch
+    import torch.nn.functional as F
+    from xfr_torch import ops as O
+
+    def scatter_rows_maxpool2d(params, xs, g, *, kernel=(2, 2), stride=None,
+                               padding=(0, 0), ceil_mode=False):
+        (x,) = xs
+        kernel, padding = O._pair(kernel), O._pair(padding)
+        stride = kernel if stride is None else O._pair(stride)
+        xp = O._pool_pad(x, kernel, stride, padding, ceil_mode, float("-inf"))
+        _, idx = F.max_pool2d(xp, kernel, stride, return_indices=True)
+        r = g.shape[0]
+        p, c, hp, wp = xp.shape
+        gp = g.new_zeros((r, p * c, hp * wp))
+        gp.scatter_add_(2, idx.reshape(1, p * c, -1).expand(r, -1, -1),
+                        g.reshape(r, p * c, -1))
+        return (O._unpad(gp.reshape(r, p, c, hp, wp), x, kernel, stride,
+                         padding, ceil_mode),)
+
+    cud = torch.backends.cudnn
+    flags, rule = cud.flags, O._ROW_VJPS["maxpool2d"]
+
+    def callers_flags(**kw):
+        kw.update(benchmark=cud.benchmark, deterministic=cud.deterministic)
+        return flags(**kw)
+
+    try:
+        if maxpool:
+            O._ROW_VJPS["maxpool2d"] = scatter_rows_maxpool2d
+        if cudnn:
+            cud.flags = callers_flags
+        yield
+    finally:
+        O._ROW_VJPS["maxpool2d"] = rule
+        cud.flags = flags
+
+
 def phase_device():
     import torch
 
@@ -220,12 +332,12 @@ def fused_blend_inputs(seed=0, n=CHUNK):
     from xfr_torch.blackbox import masks as M
     from xfr_torch.models.resnet101 import MEAN_RGB
 
-    g = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.Generator().manual_seed(seed)  # the masks' draws are the host's
     gh = -(-SIZE // SCALE)
     probs = torch.full((gh, gh), 1.0 / (gh * gh), device="cuda")
     grids = M.sample_sparse_grids(g, probs, n, ELEMS)
     shifts = M.random_shifts(g, n, SCALE, "cuda")
-    probe = torch.rand((SIZE, SIZE, 3), generator=g, device="cuda") * 255
+    probe = torch.rand((SIZE, SIZE, 3), generator=g).cuda() * 255
     fill = M.gaussian_blur(probe, 0.04 * SIZE)
     mean = torch.as_tensor(MEAN_RGB, dtype=torch.float32, device="cuda")
     return grids, shifts, probe, fill, mean
@@ -460,11 +572,11 @@ def main_path():
     torch.cuda.synchronize()
     per_map = -(-N_MASKS // CHUNK)
 
-    # --- the main path: counts at 0, three maps, counts read after ---
+    # --- the main path: counts at 0, the timed maps, counts read after ---
     torch.cuda.reset_peak_memory_stats()
     FB.fused_mask_blend_preprocess.launches = 0
     times, deltas, kept = [], [], None
-    for seed in (1, 2, 3):
+    for seed in MAIN_SEEDS:
         c0 = FB.fused_mask_blend_preprocess.launches
         t0 = time.time()
         st = make(seed, **fused)
@@ -477,10 +589,11 @@ def main_path():
             kept = st
     launches = FB.fused_mask_blend_preprocess.launches
     peak = torch.cuda.max_memory_allocated()
-    emit("main", maps=3, map_s=times, maps_per_s=3 / sum(times),
+    emit("main", maps=len(MAIN_SEEDS), map_s=times,
+         maps_per_s=len(MAIN_SEEDS) / sum(times),
          launches=launches, launches_per_map=deltas, expected=per_map,
          peak_mem_bytes=peak, score_precision="high")
-    if deltas != [per_map] * 3:
+    if deltas != [per_map] * len(MAIN_SEEDS):
         raise AssertionError(f"fused_blend launched {deltas} times per "
                              f"map, expected {per_map}")
     return wb, make, kept, launches
@@ -524,44 +637,89 @@ def phase_branches(make, st_k):
          map_max_abs_diff=dmap, map_corr=corr, map_f32_step=q,
          tol={"score_atol": 1e-6, "map_atol": map_atol})
     check_map(st_m.saliency_map)
+    uniform = uniform_draws_card_vs_cpu()
     if not same_masks or ds.max() > 1e-6 or dmap > map_atol:
         raise AssertionError("kernel and materialized branches disagree")
+    check_repeats("branches: uniform-prior masks, card against CPU", uniform)
+
+
+def uniform_draws_card_vs_cpu(seeds=(0, 1), materialized=640):
+    """STRise(seed=s, prior_type="uniform")'s masks on the card and on the
+    CPU (scale 12, 2 elements): the grids and shifts of the fused-blend
+    path at the main path's 6,500 masks, and the first ``materialized``
+    masks of the materialized-mask path (the CPU's upsampling of all
+    6,500 would take seconds), each card against CPU by repeat_diff (the
+    draws and the uniform prior's grid are the host's, so they must read
+    0).  Emits the readings; returns them."""
+    from xfr_torch.blackbox.strise import STRise
+
+    probe, ref, gal = _images(7, 3)
+    out = {}
+    for seed in seeds:
+        got = {}
+        for dev in ("cuda", "cpu"):
+            kw = dict(probe=probe, refs=[ref], gallery=[gal],
+                      black_box_fn=lambda p, g: np.zeros((len(p), len(g))),
+                      prior_type="uniform", mask_scale=SCALE,
+                      num_mask_elements=ELEMS, seed=seed, device=dev)
+            st = STRise(use_pallas_blend=True, num_masks=N_MASKS, **kw)
+            st.uniform_prior()
+            st.generate_masks()
+            st_m = STRise(use_pallas_blend=False, num_masks=materialized,
+                          **kw)
+            st_m.uniform_prior()
+            st_m.generate_masks()
+            got[dev] = {"grids": st._grids_dev, "shifts": st._shifts_dev,
+                        "masks": st_m._masks_dev}
+        for k in got["cpu"]:
+            out["seed%d_%s" % (seed, k)] = repeat_diff(got["cuda"][k],
+                                                       got["cpu"][k])
+    emit("uniform_draws", masks=N_MASKS, materialized=materialized,
+         card_vs_cpu=out)
+    return out
 
 
 def phase_tf32(make, st_high):
-    """The same maps with TF32 allowed in the scoring encode; the first
-    (seed 1) is compared with the full-float32 map of the same seed."""
+    """Seed 1's map with TF32 allowed in the scoring encode, a warm-up and
+    a timed map, the same bit for bit, compared with the full-float32 map
+    of the same seed."""
     import torch
 
     kw = dict(use_pallas_blend=True, score_precision=None)
-    check_map(make(4, **kw).launch_evaluate()())  # warm-up
-    times, first = [], None
-    for seed in (1, 2):
-        t0 = time.time()
-        st = make(seed, **kw)
-        check_map(st.launch_evaluate()())
-        torch.cuda.synchronize()
-        times.append(time.time() - t0)
-        first = first or st
+    warm = make(1, **kw)  # warm-up, repeated by the timed map
+    check_map(warm.launch_evaluate()())
+    t0 = time.time()
+    first = make(1, **kw)
+    check_map(first.launch_evaluate()())
+    torch.cuda.synchronize()
+    times = [time.time() - t0]
+    repeat = {"map": repeat_diff(first.saliency_map, warm.saliency_map),
+              "scores": repeat_diff(first.mask_scores, warm.mask_scores)}
     sel_h, sel_t = st_high.mask_scores > 0, first.mask_scores > 0
     emit("tf32", map_s=times, maps_per_s=len(times) / sum(times),
-         score_precision=None,
+         score_precision=None, repeat_of_warmup=repeat,
          vs_high={"map_corr": float(np.corrcoef(
              first.saliency_map.ravel(), st_high.saliency_map.ravel())[0, 1]),
              "score_max_abs_diff": float(np.abs(
                  first.mask_scores - st_high.mask_scores).max()),
              "selection_disagree": int((sel_h != sel_t).sum()),
              "selected_high": int(sel_h.sum())})
+    check_repeats("tf32", repeat)
 
 
-def phase_breakdown(wb, make, kernel_ms):
+def phase_breakdown(wb, make, kernel_ms, st_k):
     """One map step by step, each step ended by a synchronize, plus one
-    scoring chunk's encode by CUDA events."""
+    scoring chunk's encode by CUDA events.  The map is seed 1's, the
+    main path's first timed map ``st_k`` again: its prior, masks, scores
+    and map must be the same bit for bit.  The draw of its masks (the
+    host's noise and shifts and their uploads) runs once more with every
+    host sync refused."""
     import torch
+    from xfr_torch.blackbox import masks as M
     from xfr_torch.blackbox.strise import _encode_and_score
     from xfr_torch.utils.device import precision_scope
 
-    st = make(5, use_pallas_blend=True, score_precision="high")
+    st = make(1, use_pallas_blend=True, score_precision="high")
     steps = {}
 
     def step(name, fn):
@@ -578,6 +736,18 @@ def phase_breakdown(wb, make, kernel_ms):
     step("score_drain", drain)
     step("saliency", st.compute_saliency_map)
     check_map(st.saliency_map)
+    # the host draw and its pinned uploads wait for nothing
+    gen = torch.Generator().manual_seed(1)
+    probs = M.prior_to_grid(st.prior, SCALE, st.prior_type)
+    torch.cuda.synchronize()
+    with host_syncs_refused(True):
+        M.sample_sparse_grids(gen, probs, N_MASKS, ELEMS)
+        M.random_shifts(gen, N_MASKS, SCALE, "cuda")
+    repeat = {"prior": repeat_diff(st.prior, st_k.prior),
+              "grids": repeat_diff(st._grids_dev, st_k._grids_dev),
+              "shifts": repeat_diff(st._shifts_dev, st_k._shifts_dev),
+              "scores": repeat_diff(st.mask_scores, st_k.mask_scores),
+              "map": repeat_diff(st.saliency_map, st_k.saliency_map)}
 
     x = torch.randn((CHUNK, 3, SIZE, SIZE), device="cuda")
     e = torch.randn((2, 512), device="cuda")
@@ -589,7 +759,9 @@ def phase_breakdown(wb, make, kernel_ms):
     per_map = -(-N_MASKS // CHUNK)
     emit("breakdown", steps_s=steps, map_s=sum(steps.values()),
          encode_chunk_ms=enc_ms, encode_per_map_s=enc_ms * per_map / 1e3,
-         fused_blend_per_map_s=kernel_ms * per_map / 1e3)
+         fused_blend_per_map_s=kernel_ms * per_map / 1e3,
+         repeat_of_main_seed1=repeat, draw_with_host_syncs_refused=True)
+    check_repeats("breakdown", repeat)
 
 
 # ---------------------------------------------------------------------------
@@ -810,7 +982,10 @@ def run_mix(wb, w, mode="norelu", shape=(112, 112), profile=True):
     """The mix as bench.py runs it: one warm-up mix with host syncs refused
     during the launches, then WB_TIMED mixes launched and drained
     double-buffered; then one mix alone, and (``profile``) its stages by
-    CUDA events.  Returns the record."""
+    CUDA events.  Every mix runs the same inputs: each method's maps and
+    the selected subtrees of every timed and the lone mix must equal the
+    warm-up's bit for bit (``repeat_max_abs_diff``, raised on).  Returns
+    the record."""
     import torch
 
     B = w["probes"].shape[0]
@@ -826,7 +1001,7 @@ def run_mix(wb, w, mode="norelu", shape=(112, 112), profile=True):
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
     start_mem = torch.cuda.memory_allocated()
-    times, launch_s, drain_s = [], [], []
+    times, launch_s, drain_s, drained = [], [], [], []
     t0 = time.time()
     tl = time.time()
     prev = launch_mix(wb, w, mode=mode)
@@ -836,7 +1011,8 @@ def run_mix(wb, w, mode="norelu", shape=(112, 112), profile=True):
         st = launch_mix(wb, w, mode=mode)
         launch_s.append(time.time() - tl)
         td = time.time()
-        check_wb_maps(drain_mix(wb, prev), shape)
+        drained.append(drain_mix(wb, prev))
+        check_wb_maps(drained[-1], shape)
         drain_s.append(time.time() - td)
         t1 = time.time()
         times.append(t1 - t0)
@@ -853,8 +1029,10 @@ def run_mix(wb, w, mode="norelu", shape=(112, 112), profile=True):
     t0 = time.time()
     st = launch_mix(wb, w, mode=mode)
     one_launch = time.time() - t0
-    drain_mix(wb, st)
+    lone = drain_mix(wb, st)
     one_mix = time.time() - t0
+    repeats = {name: max(repeat_diff(o[name], out[name])
+                         for o in drained + [last, lone]) for name in out}
 
     rec = {}
     if profile:
@@ -872,8 +1050,9 @@ def run_mix(wb, w, mode="norelu", shape=(112, 112), profile=True):
                subtree_mode=mode, subtrees_selected=[
                    len(k) for k in last["subtrees"]],
                wsebp_dtype=str(wb.wsebp_dtype).replace("torch.", ""),
-               k1_launches=k1)
+               k1_launches=k1, repeat_max_abs_diff=repeats)
     check_no_k1("whitebox mix", k1)
+    check_repeats("whitebox mix", repeats)
     return rec
 
 
@@ -887,7 +1066,77 @@ def phase_whitebox():
     wb.wsebp_dtype = torch.bfloat16
     w = whitebox_workload(wb, WB_B)
     emit("whitebox", **run_mix(wb, w))
+    emit("whitebox_previous_form", **mix_form_cost(wb, w))
     return wb, w
+
+
+FORMS = {"previous": dict(), "scatter_only": dict(cudnn=False),
+         "cudnn_only": dict(maxpool=False)}
+
+
+def in_form(form):
+    """A block in ``form``: "new" (the port as it is) or one of FORMS,
+    previous_form's arguments."""
+    return (contextlib.nullcontext() if form == "new"
+            else previous_form(**FORMS[form]))
+
+
+def mix_form_cost(wb, w, attribute=()):
+    """One mix alone (launch, drain, synchronize; host clock) in the
+    previous form and the new one in turns (previous, new, new,
+    previous, after a warm-up in the previous form), then each form of
+    ``attribute`` (FORMS' "scatter_only", "cudnn_only") twice.  Each
+    form's two mixes on the same inputs: the largest difference of each
+    method's maps (repeat_diff; the new form's must read 0), which names
+    the sources.  Returns the record."""
+    import torch
+
+    def one(form):
+        with in_form(form):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = drain_mix(wb, launch_mix(wb, w))
+            torch.cuda.synchronize()
+        return time.time() - t0, out
+
+    one("previous")
+    runs = {}
+    for form in ("previous", "new", "new", "previous") + attribute:
+        runs.setdefault(form, []).append(one(form))
+    wb.net.reset_classifier()
+    B = w["probes"].shape[0]
+    rec = {form: {"mix_s": [t for t, _ in r],
+                  "maps_per_s": 4 * B * len(r) / sum(t for t, _ in r),
+                  "run_to_run": {name: repeat_diff(r[0][1][name],
+                                                   r[1][1][name])
+                                 for name in r[0][1]}}
+           for form, r in runs.items()}
+    check_repeats("whitebox mix, new form", rec["new"]["run_to_run"])
+    rec["map_max"] = {name: float(max(np.max(m) for m in maps))
+                      for name, maps in runs["new"][0][1].items()
+                      if name != "subtrees"}
+    return {"forms": {"previous": "scatter-add max-pool vjp and the "
+                      "caller's cuDNN flags", "scatter_only": "the "
+                      "scatter-add vjp alone", "cudnn_only": "the "
+                      "caller's cuDNN flags alone"}, **rec}
+
+
+def phase_sources():
+    """Which of the previous form's two parts moved the results from run
+    to run (run alone, not by main): the full-depth mix of phase_whitebox
+    in each form twice (mix_form_cost with the attribution forms):
+
+        python3 -c "import chip_smoke as c; c.phase_sources()"
+    """
+    import torch
+
+    wb = whitebox_net("cuda")
+    wb.wsebp_dtype = torch.bfloat16
+    w = whitebox_workload(wb, WB_B)
+    drain_mix(wb, launch_mix(wb, w))
+    emit("sources", **mix_form_cost(
+        wb, w, attribute=("scatter_only", "scatter_only", "cudnn_only",
+                          "cudnn_only")))
 
 
 def phase_wsebp_bf16(wb, w):
@@ -1159,7 +1408,10 @@ def phase_eval():
     warm-up group with every host sync refused during its four launches
     and its flush, then EVAL_GROUPS timed groups with one group in flight
     (group p+1 launched, its IoU curves computed, before group p drains);
-    then one group alone, its steps and rows, and one profiled group."""
+    then one group alone, its steps and rows, and one profiled group.
+    The groups alternate bench.py's two pairs: every group's
+    classifications and distances must equal those of the first group of
+    its pair bit for bit."""
     import torch
     from xfr_torch.blackbox import fused_blend as FB
 
@@ -1167,10 +1419,20 @@ def phase_eval():
     wb = whitebox_net("cuda")
     w = eval_workload(wb)
     k1_before = FB.fused_mask_blend_preprocess.launches
-    drain_eval_group(launch_eval_group(wb, w, 0, refuse_syncs=True))
+    # the first result of each pair: every later group of the pair must
+    # give the same classifications and distances bit for bit
+    seen = {0: drain_eval_group(launch_eval_group(wb, w, 0,
+                                                  refuse_syncs=True))}
     torch.cuda.synchronize()
     warm_s = time.time() - t0
     wb._upload_memo.clear()  # the first timed group pays its upload again
+    repeat = []
+
+    def check(p, out):
+        if p % 2 in seen:
+            repeat.append(repeat_diff(out, seen[p % 2]))
+        else:
+            seen[p % 2] = out
 
     torch.cuda.reset_peak_memory_stats()
     times, launch_s, iou_s = [], [], []
@@ -1186,11 +1448,11 @@ def phase_eval():
     pend = launch(0)
     for p in range(1, EVAL_GROUPS):
         nxt = launch(p)
-        drain_eval_group(pend)
+        check(p - 1, drain_eval_group(pend))
         t1 = time.time()
         times.append(t1 - t0)
         t0, pend = t1, nxt
-    drain_eval_group(pend)
+    check(EVAL_GROUPS - 1, drain_eval_group(pend))
     times.append(time.time() - t0)
     peak = torch.cuda.max_memory_allocated()
 
@@ -1199,7 +1461,7 @@ def phase_eval():
         t0 = time.time()
         g = launch_eval_group(wb, w, 1)
         one_launch = time.time() - t0
-        drain_eval_group(g)
+        check(1, drain_eval_group(g))
         one_group = time.time() - t0
     prof, _ = eval_group_profile(wb, w)
     k1 = FB.fused_mask_blend_preprocess.launches - k1_before
@@ -1211,7 +1473,9 @@ def phase_eval():
                                       "group_s": one_group},
          steps_per_group=count["steps"], rows_per_group=count["rows"],
          rows_used=EVAL_MAPS * T, profile=prof, k1_launches=k1,
-         encode_precision="TF32 allowed")
+         encode_precision="TF32 allowed",
+         repeat_max_abs_diff=max(repeat), repeats=len(repeat))
+    check_repeats("eval", {"groups": max(repeat)})
     if k1 != 0:
         raise AssertionError(f"the eval path launched K1 {k1} times")
     if count["rows"] != count["steps"] * wb.blend_batch:
@@ -1240,7 +1504,8 @@ def phase_wsebp_parity():
     max (the CPU tests' limits at this depth).  On the card the fused
     per-probe map must equal the batched path's for the same probe and
     classifier (the same program on the same inputs: equal selections,
-    maps within 1e-6 of their max)."""
+    maps within 1e-6 of their max).  The card runs every path twice, and
+    the two runs must be the same bit for bit."""
     import torch
 
     wbs = {dev: whitebox_net(dev, layers=(1, 1, 1, 1))
@@ -1249,15 +1514,19 @@ def phase_wsebp_parity():
     for dev, wb in wbs.items():
         wb.net.set_triplet_classifier(w["em"].to(dev), w["en"].to(dev))
     res, secs = {}, {}
+    repeats = {}
     for dev in ("cuda", "cpu", "cuda"):  # the first card pass warms up
         for name, kw in WSEBP_PATHS.items():
             t0 = time.time()
+            first = res.get((dev, name))
             res[dev, name] = wbs[dev].weighted_subtree_ebp(
                 w["probes"].to(dev), 0, 1, topk=WB_TOPK,
                 subtree_mode="norelu", **kw)
             if dev == "cuda":
                 torch.cuda.synchronize()
             secs[dev, name] = time.time() - t0
+            if first is not None:
+                repeats[name] = repeat_diff(res[dev, name], first)
     rec, ok = {}, True
     for name in WSEBP_PATHS:
         (s_c, m_c, sc_c, k_c), (s_p, m_p, sc_p, k_p) = (res["cuda", name],
@@ -1290,7 +1559,9 @@ def phase_wsebp_parity():
                                    "map_max_err_rel_to_max": batch_err,
                                    "scores_equal": sc_b == sc_f},
          tol={"score_rtol": 5e-5, "map_err_rel_to_max": 1e-4,
-              "batched_map_err_rel_to_max": 1e-6})
+              "batched_map_err_rel_to_max": 1e-6},
+         card_repeat_max_abs_diff=repeats)
+    check_repeats("wsebp_parity", repeats)
     if not (ok and same_batch):
         raise AssertionError(f"per-probe weighted subtree: {rec}, batched "
                              f"equal {same_batch} ({batch_err})")
@@ -1357,22 +1628,25 @@ def phase_generate():
         return j
 
     tmp = tempfile.TemporaryDirectory()
-    written = []
+    written, by_key = [], {}
     save = npz_writer(tmp.name, written)
 
     def write(job, key, smap):
         t = time.time()
         save(job, key, smap)
+        by_key[job["label"], key] = written[-1]
         host["write_s"] += time.time() - t
 
-    # one warm-up group, every host sync refused during its launch
+    # one warm-up group, every host sync refused during its launch: the
+    # first group of the batched run below, whose maps must be the same
     t0 = time.time()
-    group = [resolve(j) for j in generation_jobs(GEN_B, seed=100)]
+    group = [resolve(j) for j in generation_jobs(GEN_B)]
     with host_syncs_refused(True):
         st = G.launch_wb_group(wb, group, GEN_B, mode, 6)
     G.drain_wb_group(wb, st, write)
     torch.cuda.synchronize()
     warm_s = time.time() - t0
+    warm_maps, by_key = by_key, {}
 
     # the batched generator's double-buffered groups
     written.clear()
@@ -1391,6 +1665,8 @@ def phase_generate():
     if failures or done != GEN_JOBS or n_maps != 4 * GEN_JOBS:
         raise AssertionError(f"batched generation: {done} jobs, {n_maps} "
                              f"maps, failures {failures}")
+    repeats = {"batched_first_group": repeat_diff(
+        warm_maps, {k: by_key[k] for k in warm_maps})}
 
     # one probe through the serial method functions
     probe, mates, nonmates = generation_jobs(1, seed=200)[0]["images"]
@@ -1398,9 +1674,9 @@ def phase_generate():
 
     def timed(name, fn):
         """The method twice: its first call, then a timed call with its
-        peak memory."""
+        peak memory; the two maps must be the same bit for bit."""
         t = time.time()
-        fn()
+        m0 = fn()
         torch.cuda.synchronize()
         first = time.time() - t
         torch.cuda.reset_peak_memory_stats()
@@ -1410,6 +1686,7 @@ def phase_generate():
         serial[name] = {"first_s": first, "s": time.time() - t,
                         "peak_mem_bytes": torch.cuda.max_memory_allocated()}
         check_wb_maps({"weighted_subtree": [m]})
+        repeats["serial " + name] = repeat_diff(m, m0)
 
     timed("meanEBP", lambda: G.mean_ebp(wb, probe))
     timed("contrastive", lambda: G.run_contrastive_triplet_ebp(
@@ -1485,7 +1762,8 @@ def phase_generate():
                    "maps_per_s": GEN_BB_JOBS / bb_s,
                    "peak_mem_bytes": bb_peak, "vs_evaluate": bb_rec,
                    "score_precision": "high"},
-         k1_launches=k1)
+         k1_launches=k1, repeat_max_abs_diff=repeats)
+    check_repeats("generate", repeats)
     if k1 != 0:
         raise AssertionError(f"the generation path launched K1 {k1} times")
     if any(r["map_max_abs_diff"] > r["tol"] for r in bb_rec):
@@ -1800,8 +2078,11 @@ def phase_variants():
     mode passes the zero incoming gradient and drops the prior, so every
     map is zero, as in the JAX package's goldens) and subtree_ebp
     (percentile_argmax, top 1 and 8), each called once to warm up, then
-    timed, every map non-zero; at one block a stage the same calls at
-    event 37 (a BatchNorm there) plus subtree_ebp(mode="percentile") on
+    timed, the two results the same bit for bit (top 1 after top 8, whose
+    rank walk it shares, runs once), every map non-zero, and top 8 in
+    the previous and the present form in turns (previous_form); at one
+    block a stage the same calls at event 37 (a BatchNorm there) plus
+    subtree_ebp(mode="percentile") on
     the card and on the CPU, same weights, in float64 and in float32.
     Float64: the same selections, scores at rtol 1e-9, maps within 1e-6
     of their max (maps come out in float32).  Float32: the card's maps
@@ -1833,17 +2114,35 @@ def phase_variants():
     xc = x.cuda()
     k_full = 38
     k_el = peak_element(wb, xc, k_full)
-    full = {}
-    for name, call in variant_calls(wb, xc, k_full, k_el).items():
-        call()
-        torch.cuda.synchronize()
+    full, repeats = {}, {}
+    calls = variant_calls(wb, xc, k_full, k_el)
+    # subtree_ebp at top 1 reuses top 8's rank walk, warm: it runs once
+    top1 = "subtree_percentile_argmax_top1"
+    calls[top1] = calls.pop(top1)
+    for name, call in calls.items():
+        first = None
+        if name != top1:
+            first = call()
+            torch.cuda.synchronize()
         t0 = time.time()
-        m, sel = _variant_map(call())
+        res = call()
+        m, sel = _variant_map(res)
         full[name] = {"s": time.time() - t0, "max": float(m.max())}
         if sel is not None:
             full[name]["subtrees"] = sel[0]
+        if first is not None:
+            repeats[name] = repeat_diff(res, first)
         if not np.isfinite(m).all() or m.min() < 0 or not m.max() > 0:
             raise AssertionError(f"variant {name}: bad map {full[name]}")
+    # subtree_ebp at top 8 in the previous form and the new one in turns
+    form_s = {}
+    for form in ("previous", "new", "new", "previous"):
+        with in_form(form):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            wb.subtree_ebp(xc, 0, 1, topk=8)
+            torch.cuda.synchronize()
+        form_s.setdefault(form, []).append(time.time() - t0)
     event_tag = wb.net.graph.events[k_full].tag
     del wb
 
@@ -1938,8 +2237,10 @@ def phase_variants():
               "float32_map_err_rel_to_max": 1e-4,
               "float64_score_rtol": 1e-9, "float32_score_rtol": 1e-4,
               "uint8_prior_abs": "2 uint8 steps of its max"},
-         k1_launches=k1_launches() - k1_0)
+         k1_launches=k1_launches() - k1_0, repeat_max_abs_diff=repeats,
+         subtree_top8_s_by_form=form_s)
     check_no_k1("variants", k1_launches() - k1_0)
+    check_repeats("variants", repeats)
     if not ok:
         raise AssertionError(f"variants: card and CPU disagree: {reduced}, "
                              f"uint8 prior {prior_err} of {pmax}")
@@ -2179,7 +2480,8 @@ def detect_stages(net, img, reps=1):
 def phase_detect():
     """FasterRCNN(conf_threshold=-1.0) at full width on the card (default
     800 px, max 1300) with ``detector_params``: one warm-up, 1 timed
-    detect() call, one with rotate_flags=7 and padding 10; the stages of
+    detect() call (its detections the warm-up's bit for bit), one with
+    rotate_flags=7 and padding 10; the stages of
     one pass, full float32 and TF32; peak memory; K1 launches (0).  Also
     the unscaled numpy init's res4 magnitude and RoI count."""
     import torch
@@ -2206,10 +2508,12 @@ def phase_detect():
     det = FasterRCNN(conf_threshold=-1.0, params=detector_params())
     build_s = time.time() - t0
     t0 = time.time()
-    check_dets(det.detect(img))
+    warm = det.detect(img)
+    check_dets(warm)
     warm_s = time.time() - t0
     torch.cuda.reset_peak_memory_stats()
     start_mem = torch.cuda.memory_allocated()
+    last = {}
 
     def timed(n, **kw):
         walls = []
@@ -2218,9 +2522,11 @@ def phase_detect():
             dets = det.detect(img, **kw)
             walls.append(time.perf_counter() - t)
             check_dets(dets)
+        last["dets"] = dets
         return walls, len(dets)
 
     walls, n_dets = timed(1)
+    repeat = {"detections": repeat_diff(last["dets"], warm)}
     peak = torch.cuda.max_memory_allocated()
     det.rotate_flags = 7
     walls7, n_dets7 = timed(1, padding=10)
@@ -2236,8 +2542,9 @@ def phase_detect():
          rotate7_detections=n_dets7, stages=stages,
          peak_mem_bytes=peak, start_mem_bytes=start_mem,
          tf32={"detect_s": tf32_walls, "stages": tf32_stages},
-         k1_launches=k1)
+         k1_launches=k1, repeat_of_warmup=repeat)
     check_no_k1("detect", k1)
+    check_repeats("detect", repeat)
     if stages["rois"] == 0:
         raise AssertionError("detect: the proposal layer kept no RoI")
 
@@ -2599,6 +2906,33 @@ def train_step_profile(step, p, o, x, y):
                 sorted(groups.items(), key=lambda kv: -kv[1]["ms"]))}
 
 
+def train_form_cost(step, init, params, x, y, timed=3):
+    """Runs of the step in the previous form (previous_form's cuDNN
+    flags; autograd's max-pool backward was never the scatter) and the
+    new one in turns (previous, new, new, previous), each from init's
+    fresh state of ``params``: the first step's loss and every leaf after
+    it kept, then ``timed`` steps by CUDA events.  Each form's two first
+    steps from the one state: repeat_diff of loss and leaves (the new
+    form's must read 0, raised on by phase_train).  Returns the record."""
+    def run(form):
+        with previous_form(maxpool=False) if form == "previous" else \
+                contextlib.nullcontext():
+            p, o = init(params)
+            p, o, loss = step(p, o, x, y)
+            first = {"loss": loss.detach().clone(), "leaves": {
+                k: {kk: v.detach().clone() for kk, v in leaves.items()}
+                for k, leaves in p.items()}}
+            p, o, r = timed_train_steps(step, p, o, x, y, timed)
+        return first, r["median_step_ms"]
+
+    runs = {}
+    for form in ("previous", "new", "new", "previous"):
+        runs.setdefault(form, []).append(run(form))
+    return {form: {"median_step_ms": [ms for _, ms in r],
+                   "first_step_repeat": repeat_diff(r[0][0], r[1][0])}
+            for form, r in runs.items()}
+
+
 def mesh_step_check(graph, params, x, y):
     """make_train_step(mesh=make_mesh((1, 1))) on a one-rank NCCL group
     (file:// rendezvous) against the plain step, one step each from the
@@ -2654,9 +2988,12 @@ def phase_train():
     and TRAIN_TIMED under None (TF32), each from the same start weights:
     step time by CUDA events, images/s, every step's loss (finite), peak
     memory after a gc.collect() beside what was resident at the start,
-    and one profiled step's idle share and device time by group.  Then
-    the one-rank NCCL mesh step against the plain step
-    (mesh_step_check).  K1 must launch 0 times."""
+    and one profiled step's idle share and device time by group; then
+    train_form_cost: the step in the previous and the new form in turns,
+    and two first steps from one state in each, whose losses and leaves
+    must be the same bit for bit in the new form.  Then the one-rank NCCL
+    mesh step against the plain step (mesh_step_check).  K1 must launch 0
+    times."""
     import tempfile
 
     import torch
@@ -2699,11 +3036,18 @@ def phase_train():
                  profile=train_step_profile(step, p, o, x, y))
         ok &= bool(np.isfinite([warm["loss"]] + r["losses"]).all())
         rec[str(precision)] = r
-        del p, o, step, init
+        del p, o
+        rec[str(precision)]["by_form"] = train_form_cost(step, init, params,
+                                                         x, y)
+        del step, init
     rec["mesh_step"] = mesh_step_check(graph, params, x, y)
     k1 = k1_launches() - k1_0
     emit("train", **rec, k1_launches=k1)
     check_no_k1("train", k1)
+    for precision in ("high", "None"):
+        check_repeats("train, " + precision,
+                      {"first_step": rec[precision]["by_form"]["new"][
+                          "first_step_repeat"]})
     if not ok or not rec["mesh_step"]["ok"]:
         raise AssertionError(f"train: non-finite losses or the mesh step "
                              f"disagrees: {rec}")
@@ -2713,8 +3057,8 @@ def phase_train():
 # The inference side under a device mesh
 # ---------------------------------------------------------------------------
 
-MESH_TIMED = 2       # timed mixes and STRise maps are 1, eval groups 3
-MESH_REL = 1e-6      # the same rows through the same programs
+MESH_TIMED = 1       # timed mixes; STRise maps are 1, eval groups 3
+MESH_REL = 1e-6      # mean-EBP at the full shapes, another batch size
 MESH_RANK_S = 420    # each rank of the two-process form
 
 
@@ -2722,9 +3066,8 @@ def mesh_workloads(wb, w, ew, net_dict, mesh=None, strise_batch=CHUNK):
     """The mesh phase's three workloads on the main path's net ``wb``
     (full ResNet-101+L2, bfloat16 sweep), meshed or not: the 4-map mix
     on ``w`` (one warm-up with every host sync refused during the
-    launches, then MESH_TIMED mixes one at a time; the largest difference
-    between the warm-up's maps and the last mix's, over each method's
-    largest value, is the card's own run-to-run spread), one STRise map
+    launches, then MESH_TIMED mixes one at a time, whose results must be
+    the warm-up's bit for bit), one STRise map
     (6,500 masks, mean-EBP prior, "high", K1, chunks of
     ``strise_batch``) with K1's launches counted from 0, and the eval
     group of ``ew`` (a warm-up with host syncs refused during its
@@ -2757,7 +3100,8 @@ def mesh_workloads(wb, w, ew, net_dict, mesh=None, strise_batch=CHUNK):
     res.update(mix_results(out))
     B = len(out["mean_ebp"])
     rec["mix"] = {"s": mix_s, "maps_per_s": 4 * B * len(mix_s) / sum(mix_s),
-                  "run_to_run": mesh_errors(mix_results(first), res)}
+                  "run_to_run": mesh_exact(res, mix_results(first))[1]}
+    check_repeats("mesh workloads' mix", rec["mix"]["run_to_run"])
 
     t0 = start()
     FB.fused_mask_blend_preprocess.launches = 0
@@ -2815,18 +3159,23 @@ def mesh_errors(got, want):
     return out
 
 
-def mesh_judged(got, want, ws_rule):
-    """Whether ``got`` holds ``want``: the well-conditioned results (the
-    mean-EBP maps, STRise's scores and map, the eval's distances) within
-    MESH_REL of their largest value and the integer ones equal; the
-    contrastive and truncated-contrastive maps, differences of near-equal
-    distributions that the card's own run-to-run reduction order moves
-    (mesh_workloads' ``run_to_run``), at correlation 0.999 or more, as
-    wb_parity holds them; the weighted-subtree maps by ``ws_rule``:
-    "same" (within 1e-3 of their max, min(30, selected - 2) subtrees
-    shared, as wb_parity) or "bf16" (correlation above 0.98 and 2 of 3
-    subtrees shared, as wsebp_bf16 gates the bfloat16 sweep).  Returns
-    (ok, readings)."""
+def mesh_exact(got, want):
+    """Whether ``got`` holds ``want`` bit for bit, result by result (the
+    same rows through the same programs give the same bits on the card).
+    Returns (ok, {result: repeat_diff})."""
+    diffs = {k: repeat_diff(np.asarray(got[k]), np.asarray(v))
+             for k, v in want.items()}
+    return all(d == 0.0 for d in diffs.values()), diffs
+
+
+def mesh_judged_full_shapes(got, want):
+    """Whether (b)'s mix holds the plain mix at the full shapes, where
+    cuDNN sees other batch sizes: the mean-EBP maps within MESH_REL of
+    their largest value, the contrastive and truncated-contrastive maps
+    (differences of near-equal distributions) at correlation 0.999 or
+    more, as wb_parity holds them, and the bfloat16 weighted-subtree
+    maps as wsebp_bf16 gates the bfloat16 sweep (correlation above 0.98,
+    2 of 3 subtrees shared).  Returns (ok, readings)."""
     err = mesh_errors(got, want)
     corr = {k: min(float(np.corrcoef(a.ravel(), b.ravel())[0, 1])
                    for a, b in zip(got[k], want[k]))
@@ -2837,19 +3186,12 @@ def mesh_judged(got, want, ws_rule):
                     want["mix_subtrees"].tolist()):
         a, b = {k for k in a if k >= 0}, {k for k in b if k >= 0}
         shared.append(len(a & b))
-        need.append(min(30, len(b) - 2) if ws_rule == "same"
-                    else -(-2 * len(b) // 3))
-    well = [k for k in err if not k.startswith(("mix_contrastive",
-                                                 "mix_truncated",
-                                                 "mix_weighted",
-                                                 "mix_subtrees"))]
-    ok = (all(err[k] <= (0 if want[k].dtype.kind in "biu" else MESH_REL)
-              for k in well)
+        need.append(-(-2 * len(b) // 3))
+    ok = (err["mix_mean_ebp"] <= MESH_REL
           and corr["mix_contrastive"] >= 0.999
           and corr["mix_truncated_contrastive"] >= 0.999
           and all(s >= n for s, n in zip(shared, need))
-          and (err["mix_weighted_subtree"] <= 1e-3 if ws_rule == "same"
-               else corr["mix_weighted_subtree"] > 0.98))
+          and corr["mix_weighted_subtree"] > 0.98)
     return ok, {"rel_to_max": err, "min_corr": corr,
                 "subtrees_shared": shared, "subtrees_needed": need}
 
@@ -2948,10 +3290,11 @@ def phase_mesh():
     """The inference side's device-mesh forms on full ResNet-101+L2
     (mesh_workloads: the B=8 mix, one STRise map through K1, one eval
     group), in the two forms that fit one card, each on the plain calls'
-    inputs and judged against the plain calls' results (mesh_judged):
+    inputs and held against the plain calls' results:
 
     (a) a (1, 1) mesh on a one-rank NCCL group in this process: the same
-        rows through the same programs.
+        rows through the same programs, so every result the plain call's
+        bit for bit (mesh_exact).
     (b) two processes sharing the card (mesh_two_ranks), a (2, 1) mesh
         over gloo, each rank computing on the card on its half of the
         rows: 4 of the 8 probes, 32 of each 64-mask chunk (K1 at N=32,
@@ -2960,11 +3303,11 @@ def phase_mesh():
         0-3 and 4-7, STRise in chunks of 32; the eval's steps keep their
         shape; the mix's mean-EBP is the full-classifier program bench.py
         calls directly, which no package meshes, so each rank runs it
-        whole).  Against the plain calls at the full shapes cuDNN sees
-        other batch sizes: the bfloat16 weighted-subtree maps are then
-        held as wsebp_bf16 holds the bfloat16 sweep, and STRise's map to
-        phase_branches' limit (4 float32 steps of the normalized map plus
-        1e-3) with scores within 1e-6.
+        whole): every result those calls' bit for bit (mesh_exact).
+        Against the plain calls at the full shapes cuDNN sees other batch
+        sizes: the mix is then held by mesh_judged_full_shapes, and
+        STRise's map to phase_branches' limit (4 float32 steps of the
+        normalized map plus 1e-3) with scores within 1e-6.
 
     K1 must launch 102 times in (a) and on each rank of (b).  The record
     has each form's rates: (b)'s maps/s counts the B maps the two ranks
@@ -3009,11 +3352,11 @@ def phase_mesh():
 
     two, two_recs, two_s = mesh_two_ranks(w, ew)
 
-    ok_a, read_a = mesh_judged(one, plain, "same")
-    ok_b, read_b = mesh_judged(two, {**plain, **half_ref}, "same")
-    ok_full, read_full = mesh_judged(
+    ok_a, read_a = mesh_exact(one, plain)
+    ok_b, read_b = mesh_exact(two, {**plain, **half_ref})
+    ok_full, read_full = mesh_judged_full_shapes(
         {k: two[k] for k in plain if k.startswith("mix_")},
-        {k: plain[k] for k in plain if k.startswith("mix_")}, "bf16")
+        {k: plain[k] for k in plain if k.startswith("mix_")})
     # phase_branches' limit: 4 float32 steps near 1.0 of the normalized
     # map, plus 1e-3
     map_atol = 1e-3 + 4 * float(np.spacing(np.float32(0.5))) / \
@@ -3037,9 +3380,9 @@ def phase_mesh():
          two_ranks_gloo=two_recs, two_ranks_s=two_s, backend=backend,
          readings={"a_vs_plain": read_a, "b_vs_same_shapes": read_b,
                    "b_vs_full_shapes": dict(read_full, strise=st_full)},
-         tol={"well_conditioned_rel_to_max": MESH_REL,
-              "contrastive_corr_min": 0.999,
-              "same_ws_rel_to_max": 1e-3, "full_ws_corr_min": 0.98,
+         tol={"a_and_b_same_shapes": "bit for bit",
+              "full_mean_ebp_rel_to_max": MESH_REL,
+              "full_contrastive_corr_min": 0.999, "full_ws_corr_min": 0.98,
               "strise_score_atol": 1e-6, "strise_map_atol": map_atol},
          maps_per_s={"plain": plain_rec["mix"]["maps_per_s"],
                      "one_rank": one_rec["mix"]["maps_per_s"],
@@ -3047,6 +3390,196 @@ def phase_mesh():
          checks=checks)
     if not all(checks.values()):
         raise AssertionError(f"mesh phase: {checks}")
+
+
+# ---------------------------------------------------------------------------
+# The demos (python -m xfr_torch.demo.whitebox / .blackbox)
+# ---------------------------------------------------------------------------
+
+DEMO_WB_FILES = ["test_whitebox_%s.jpg" % n for n in (
+    "ebp", "contrastive_ebp", "truncated_contrastive_ebp", "triplet_ebp",
+    "contrastive_triplet_ebp", "truncated_contrastive_triplet_ebp",
+    "weighted_subtree_ebp_topk_64_mask_nose", "ebp_resnet50_128",
+    "ebp_lightcnn")]
+
+
+def run_demo(module, argv):
+    """``python -m module argv`` in this process (runpy, as ``-m`` runs
+    it), its standard output kept: (seconds, output lines)."""
+    import io
+    import runpy
+
+    buf, saved = io.StringIO(), sys.argv
+    sys.argv = [module] + list(argv)
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_module(module, run_name="__main__", alter_sys=True)
+    finally:
+        sys.argv = saved
+    return time.time() - t0, buf.getvalue().splitlines()
+
+
+def phase_demos():
+    """The two demos at full width on the card, as a user runs them, each
+    into a temporary --outdir: ``python -m xfr_torch.demo.whitebox
+    --quick`` (full ResNet-101+L2 "resnetv4_pytorch": the six EBP and
+    contrastive scenarios, the weighted-subtree triplet top-64 over every
+    candidate; full ResNet-50-128 and LightCNN-29 v2), ``python -m
+    xfr_torch.demo.blackbox`` (STRise, 6,500 masks, mean-EBP prior, the
+    built-in resnetv6 scorer on the materialized masks) and ``--custom-bb
+    --num-masks 650`` (the score-only contract, uniform prior).  Each
+    must write the JAX demo's files as non-empty JPEGs, and the blackbox
+    demo print its positive-score count of all the masks; wall seconds of
+    each.  The demos keep STRise's default materialized-mask path: K1
+    must launch 0 times."""
+    import tempfile
+
+    import PIL.Image
+
+    k1_0 = k1_launches()
+    rec, ok = {}, True
+    runs = (("whitebox", "xfr_torch.demo.whitebox", ["--quick"],
+             DEMO_WB_FILES, None),
+            ("blackbox", "xfr_torch.demo.blackbox", [],
+             ["blackbox_demo_subject_0_resnetv6.jpg"], N_MASKS),
+            ("blackbox_custom_bb", "xfr_torch.demo.blackbox",
+             ["--custom-bb", "--num-masks", "650"],
+             ["blackbox_demo_subject_0_custom.jpg"], 650))
+    for name, module, argv, files, masks in runs:
+        with tempfile.TemporaryDirectory() as tmp:
+            secs, lines = run_demo(module, argv + ["--outdir", tmp])
+            got = sorted(os.listdir(tmp))
+            sizes = [PIL.Image.open(os.path.join(tmp, f)).size for f in got]
+        r = {"s": secs, "files": len(got), "sizes": sorted(set(sizes))}
+        good = got == sorted(files) and all(w > 0 and h > 0
+                                            for w, h in sizes)
+        if masks is not None:
+            count = [ln for ln in lines if ln.startswith("mask_scores:")]
+            r["printed"] = count
+            good &= len(count) == 1 and count[0].endswith(" of %d" % masks)
+        r["ok"] = bool(good)
+        ok &= good
+        rec[name] = r
+        gc.collect()
+    k1 = k1_launches() - k1_0
+    emit("demos", **rec, k1_launches=k1)
+    check_no_k1("demos", k1)
+    if not ok:
+        raise AssertionError(f"demos: {rec}")
+
+
+# ---------------------------------------------------------------------------
+# Which operations have no deterministic form (run alone, not by main)
+# ---------------------------------------------------------------------------
+
+
+def phase_audit():
+    """The paths of this script once each at reduced size (ResNet-101 at
+    full widths with one block a stage; the detector at full width) under
+    ``torch.use_deterministic_algorithms(True)`` with
+    CUBLAS_WORKSPACE_CONFIG=:4096:8, in the previous form and in the new
+    one: every operation PyTorch knows to have no deterministic form
+    raises there, and its message names it.  (An operation that has one,
+    as a scatter-add or cuDNN's algorithms, switches to it silently:
+    those sources show in the repeats of the whole script, by form.)
+    Sets process-wide state, so it must be the first use of the card in
+    its process:
+
+        python3 -c "import chip_smoke as c; c.phase_audit()"
+    """
+    import tempfile
+
+    import torch
+
+    if torch.cuda.is_initialized():
+        raise RuntimeError("phase_audit must run before the card is used")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    from xfr_torch.blackbox.strise import STRise
+    from xfr_torch.detection import FasterRCNN
+    from xfr_torch.inpainting_game import generate as G
+    from xfr_torch.models import resnet101 as R101
+    from xfr_torch.train.finetune import make_train_step
+
+    wb = whitebox_net("cuda", layers=(1, 1, 1, 1))
+    wb.wsebp_dtype = torch.bfloat16
+    # the generator preprocesses its jobs' images
+    wb.net._preprocess = functools.partial(R101.preprocess_resnet101,
+                                           device="cuda")
+    w = whitebox_workload(wb, 2)
+    x1 = w["probes"][:1]
+    net_dict = {("resnetv6_pytorch", 6): wb, ("resnetv4_pytorch", None): wb,
+                ("resnetv4_pytorch", 6): wb}
+    probe, ref, gal = _images(8, 3)
+
+    def mix():
+        drain_mix(wb, launch_mix(wb, w))
+        wb.net.reset_classifier()
+
+    def per_probe():
+        wb.net.set_triplet_classifier(w["em"], w["en"])
+        for kw in WSEBP_PATHS.values():
+            wb.weighted_subtree_ebp(x1, 0, 1, topk=WB_TOPK,
+                                    subtree_mode="norelu", **kw)
+        wb.net.reset_classifier()
+
+    def variants():
+        k = 37
+        P = wb._ebp_raw_fn((k,))(wb.net.params, x1, wb._onehot(0))[k]
+        for call in variant_calls(wb, x1, k, int(P.reshape(-1).argmax()),
+                                  percentile_mode=True).values():
+            call()
+
+    def strise(precision, fused):
+        st = STRise(probe=probe, refs=[ref], gallery=[gal],
+                    black_box="resnetv6_pytorch", net_dict=net_dict,
+                    num_masks=640, mask_scale=SCALE, num_mask_elements=ELEMS,
+                    use_pallas_blend=fused, score_precision=precision,
+                    device="cuda")
+        st.launch_evaluate()()
+
+    def eval_group():
+        drain_eval_group(launch_eval_group(wb, eval_workload(wb), 0))
+
+    def generator():
+        with tempfile.TemporaryDirectory() as tmp:
+            group = [G.prepare_wb_job(wb, j, *j["images"])
+                     for j in generation_jobs(2)]
+            G.drain_wb_group(wb, G.launch_wb_group(wb, group, 2, "norelu",
+                                                   6),
+                             npz_writer(tmp, []))
+
+    def detect():
+        FasterRCNN(conf_threshold=-1.0,
+                   params=detector_params()).detect(detect_image())
+
+    def train(precision):
+        step, init = make_train_step(wb.net.graph, "fc2", device="cuda",
+                                     precision=precision)
+        p, o = init(wb.net.params)
+        step(p, o, torch.rand((4, 3, SIZE, SIZE), device="cuda"),
+             torch.arange(4, device="cuda"))
+
+    paths = {"mix": mix, "weighted_subtree_per_probe": per_probe,
+             "layerwise_and_subtree": variants,
+             "strise_high_k1": lambda: strise("high", True),
+             "strise_tf32_materialized": lambda: strise(None, False),
+             "eval_group": eval_group, "batched_generator": generator,
+             "detect": detect, "train_high": lambda: train("high"),
+             "train_tf32": lambda: train(None)}
+    raised = {}
+    for form in ("previous", "new"):
+        for name, fn in paths.items():
+            try:
+                with in_form(form):
+                    fn()
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                raised[form + " " + name] = str(e)[:400]
+    emit("audit", paths=sorted(paths), forms=["previous", "new"],
+         raised=raised,
+         cublas_workspace_config=os.environ["CUBLAS_WORKSPACE_CONFIG"])
 
 
 def main():
@@ -3069,7 +3602,7 @@ def main():
     wb, make, st_k, launches = main_path()
     phase_branches(make, st_k)
     phase_tf32(make, st_k)
-    phase_breakdown(wb, make, k1["ms"])
+    phase_breakdown(wb, make, k1["ms"], st_k)
     k1["launches"] = launches
     del wb, make, st_k
     phase_wb_parity()
@@ -3090,6 +3623,7 @@ def main():
     phase_train_parity()
     phase_train()
     phase_mesh()
+    phase_demos()
     emit("done", seconds=time.time() - t_start)
     print(smi, flush=True)
     print(json.dumps({"kernels": [k1]}), flush=True)

@@ -25,12 +25,20 @@ profiling}``, the triplet loader (``data.triplet``), fine-tuning
 ``torch.distributed`` device mesh with one process per card), and the
 inference side's mesh forms (``Whitebox.use_mesh``, ``STRise(mesh=)``, the
 generators' ``mesh=``, the CLIs' ``--mesh``): every rank of the group
-runs the same calls, computes its rows and gathers them.
+runs the same calls, computes its rows and gathers them; and the two
+demos (``python -m xfr_torch.demo.whitebox``, ``.blackbox``).
+
+One input gives one result on the card, as on the TPU: the backward
+walks sum in a fixed order, cuDNN runs deterministic algorithms inside
+``utils.device.precision_scope``, and STRise draws its masks on the host,
+so one seed gives one mask set on every device.
 
 Not applicable, so not ported: the XLA compile cache
 (``xfr_tpu.__init__._enable_persistent_compile_cache``, ``cli/warm_cache``
 and the program registry ``utils/programs``) — torch compiles nothing
-ahead of a call here, and a CUDA kernel is built once by ``kernels.load``.
+ahead of a call here, and a CUDA kernel is built once by ``kernels.load``
+— and the JAX package's compile-and-dry-run hook ``__graft_entry__.py``,
+whose part ``chip_smoke.py`` plays for the port.
 
 Path conventions mirror the JAX package's (the same environment
 overrides).

@@ -1,14 +1,17 @@
 """Sparse mask generation and image filling for STRise (port of
 xfr_tpu/blackbox/masks.py).
 
-Everything runs on the tensors' device.  Without-replacement sampling is
-the Gumbel-top-k trick; upsampling is one batched bilinear resize and
-shifting a batched crop.  Random numbers come from an explicit
-``torch.Generator``: grids are drawn first, then shifts, from one
-generator, so one seed gives the same masks whether or not the scorer
-uses the fused blend kernel.  Torch's generator cannot reproduce the JAX
-PRNG's bits, so the parity tests hand both packages the same noise
-(``sparse_grids_from_noise``) or the same grids and shifts.
+Everything runs on the tensors' device but the random draws.
+Without-replacement sampling is the Gumbel-top-k trick; upsampling is one
+batched bilinear resize and shifting a batched crop.  Random numbers come
+from an explicit CPU ``torch.Generator`` and are drawn on the host (the
+card's Philox and the CPU's Mersenne Twister give other bits for one
+seed), then copied to the device: grids are drawn first, then shifts,
+from one generator, so one seed gives the same masks on the card and on
+the CPU, and whether or not the scorer uses the fused blend kernel.
+Torch's generator cannot reproduce the JAX PRNG's bits, so the parity
+tests hand both packages the same noise (``sparse_grids_from_noise``) or
+the same grids and shifts.
 """
 
 from __future__ import annotations
@@ -103,13 +106,25 @@ def check_grid_capacity(prior_shape, mask_scale, num_elements, pct=50.0):
             "num_mask_elements" % (num_elements, gh, gw, pct, avail))
 
 
+def to_device(t, device):
+    """``t`` on ``device``: a host tensor goes to a card as a pinned copy
+    that does not wait for the card."""
+    device = torch.device(device)
+    if t.device.type == "cpu" and device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def gumbel_noise(generator, num_masks, num_cells, device):
-    """[num_masks, num_cells] standard Gumbel noise, float32, drawn from
-    ``generator`` (-log(-log(U)) with U uniform in [tiny, 1))."""
+    """[num_masks, num_cells] standard Gumbel noise, float32, on ``device``:
+    -log(-log(U)) with U uniform in [tiny, 1), drawn and transformed on the
+    host from ``generator`` (a CPU generator), so that one seed gives the
+    same noise on every device."""
     tiny = torch.finfo(torch.float32).tiny
     u = torch.rand((num_masks, num_cells), generator=generator,
-                   device=device, dtype=torch.float32)
-    return -torch.log(-torch.log(torch.clamp(u, min=tiny)))
+                   dtype=torch.float32)
+    return to_device(-torch.log(-torch.log(torch.clamp(u, min=tiny))),
+                     device)
 
 
 def sparse_grids_from_noise(grid_probs, gumbel, num_elements):
@@ -134,9 +149,11 @@ def sample_sparse_grids(generator, grid_probs, num_masks, num_elements):
 
 
 def random_shifts(generator, num_masks, mask_scale, device):
-    """[num_masks, 2] int32 crop shifts in [0, mask_scale)."""
-    return torch.randint(0, mask_scale, (num_masks, 2), generator=generator,
-                         device=device, dtype=torch.int32)
+    """[num_masks, 2] int32 crop shifts in [0, mask_scale) on ``device``,
+    drawn on the host from ``generator`` (a CPU generator)."""
+    return to_device(torch.randint(0, mask_scale, (num_masks, 2),
+                                   generator=generator, dtype=torch.int32),
+                     device)
 
 
 def upsample_shift_masks_static(grids, shifts, input_size, mask_scale):
@@ -164,13 +181,17 @@ def upsample_shift_masks(generator, grids, input_size, mask_scale,
 
 
 def make_masks(generator, prior, num_masks, mask_scale, num_elements,
-               prior_type="mean_ebp", random_shift=True):
-    """Full mask pipeline: prior [H,W] -> masks [N,H,W] float in [0,1]."""
+               prior_type="mean_ebp", random_shift=True, device=None):
+    """Full mask pipeline: prior [H,W] -> masks [N,H,W] float in [0,1] on
+    ``device`` (default: the prior's).  The sampling grid is computed
+    where the prior lies: a prior on the host gives the same grid, so the
+    same masks, on every device."""
     # a uniform prior binarizes to all-ones after the clip (every cell
     # equals the percentile), so its capacity is the whole grid
     check_grid_capacity(prior.shape, mask_scale, num_elements,
                         pct=0.0 if prior_type == "uniform" else 50.0)
-    grid_probs = prior_to_grid(prior, mask_scale, prior_type)
+    grid_probs = to_device(prior_to_grid(prior, mask_scale, prior_type),
+                           prior.device if device is None else device)
     grids = sample_sparse_grids(generator, grid_probs, num_masks,
                                 num_elements)
     return upsample_shift_masks(generator, grids, prior.shape, mask_scale,

@@ -110,7 +110,9 @@ class STRise:
         self._net_dict = net_dict if net_dict is not None else {}
         self.mean_ebp_net = None
         self.resnet_net = None
-        self._gen = torch.Generator(device=self.device)
+        # a CPU generator whatever the device: the masks are drawn on the
+        # host, so one seed gives one mask set on the card and the CPU
+        self._gen = torch.Generator()
         self._gen.manual_seed(seed)
         self.batch_size = batch_size
         self.use_pallas_blend = use_pallas_blend
@@ -234,21 +236,25 @@ class STRise:
 
     def uniform_prior(self):
         # The reference leaves self.prior untouched; the usable semantic is
-        # an everywhere-uniform sampling grid.
+        # an everywhere-uniform sampling grid.  It lies on the host: its
+        # grid's percentile clip keeps the cells that rounding left at
+        # the top, and the host's rounding is the same for every device.
         if not hasattr(self, "prior"):
-            self.prior = torch.ones((224, 224), dtype=torch.float32,
-                                    device=self.device)
+            self.prior = torch.ones((224, 224), dtype=torch.float32)
 
     # -- step 2: masks -------------------------------------------------------
 
     def generate_sparse_masks(self, random_shift=True, order=1):
-        prior = self._tensor(self.prior)
+        # the sampling grid is computed where a tensor prior lies (a host
+        # prior gives one grid on every device), the masks on the device
+        prior = (self.prior if isinstance(self.prior, torch.Tensor)
+                 else self._tensor(self.prior)).float()
         if self.use_pallas_blend and random_shift:
             M.check_grid_capacity(
                 prior.shape, self.mask_scale, self.num_mask_elements,
                 pct=0.0 if self.prior_type == "uniform" else 50.0)
-            grid_probs = M.prior_to_grid(prior, self.mask_scale,
-                                         self.prior_type)
+            grid_probs = M.to_device(M.prior_to_grid(
+                prior, self.mask_scale, self.prior_type), self.device)
             self._grids_dev = M.sample_sparse_grids(
                 self._gen, grid_probs, self.num_masks,
                 self.num_mask_elements)
@@ -261,7 +267,7 @@ class STRise:
         self._masks_dev_cache = M.make_masks(
             self._gen, prior, self.num_masks, self.mask_scale,
             self.num_mask_elements, prior_type=self.prior_type,
-            random_shift=random_shift)
+            random_shift=random_shift, device=self.device)
         self._masks_np = None
 
     @property

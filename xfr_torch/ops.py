@@ -297,7 +297,8 @@ def op_vjp(op, params, xs, attrs, cotangent):
 # into the batch axis and never run their forward; relu and maxpool
 # broadcast the clean capture's routing over the rows.  The rules are
 # those of ``op_vjp``: relu passes 0.5 at exactly 0, maxpool routes a tie
-# to the first maximum of its window and accumulates overlapping windows.
+# to the first maximum of its window and sums overlapping windows in a
+# fixed order.
 
 
 def _fold(g):
@@ -349,14 +350,24 @@ def _rows_maxpool2d(params, xs, g, *, kernel=(2, 2), stride=None,
     xp = _pool_pad(x, kernel, stride, padding, ceil_mode, float("-inf"))
     # the first maximum of each window, as a flat index into its plane
     _, idx = F.max_pool2d(xp, kernel, stride, return_indices=True)
-    r = g.shape[0]
-    p, c, hp, wp = xp.shape
-    gp = g.new_zeros((r, p * c, hp * wp))
-    # overlapping windows (3x3, stride 2) accumulate into the input
-    gp.scatter_add_(2, idx.reshape(1, p * c, -1).expand(r, -1, -1),
-                    g.reshape(r, p * c, -1))
-    gx = _unpad(gp.reshape(r, p, c, hp, wp), x, kernel, stride, padding,
-                ceil_mode)
+    hp, wp = xp.shape[-2:]
+    ho, wo = idx.shape[-2:]
+    rows = torch.arange(ho, device=idx.device)[:, None] * (stride[0] * wp)
+    cols = torch.arange(wo, device=idx.device) * stride[1]
+    # that maximum's place in its window, i * wp + j for offset (i, j)
+    off = idx - (rows + cols)
+    gp = g.new_zeros((g.shape[0],) + tuple(xp.shape))
+    # Overlapping windows (3x3, stride 2) send several cotangents to one
+    # input.  They are summed by window offset, in a fixed order, each
+    # offset a strided slice of the input that no two windows share: the
+    # same bits on every run, where a scatter-add's order is the card's.
+    for i in range(kernel[0]):
+        for j in range(kernel[1]):
+            hit = off == i * wp + j
+            gp[..., i:i + (ho - 1) * stride[0] + 1:stride[0],
+               j:j + (wo - 1) * stride[1] + 1:stride[1]].add_(
+                   torch.where(hit, g, 0))
+    gx = _unpad(gp, x, kernel, stride, padding, ceil_mode)
     return (gx,)
 
 

@@ -33,16 +33,20 @@ def precision_scope(precision):
     """Float32 precision of convolutions and matrix products in a block.
 
     ``None`` allows TF32 (the fast default, like the TPU's single-pass
-    bf16); ``"high"`` and ``"highest"`` run full float32.  cuDNN's flag is
-    scoped with ``torch.backends.cudnn.flags`` and the matmul flag is
-    saved and restored, so nothing changes process-wide."""
+    bf16); ``"high"`` and ``"highest"`` run full float32.  Inside the
+    scope cuDNN runs only deterministic algorithms, picked without
+    benchmarking, so that a convolution and its gradients give the same
+    bits on every run (its backward-data and weight-gradient algorithms
+    may otherwise sum with atomics).  cuDNN's flags are scoped with
+    ``torch.backends.cudnn.flags`` and the matmul flag is saved and
+    restored, so nothing changes process-wide."""
     if precision not in (None, "high", "highest"):
         raise ValueError(f"unknown precision {precision!r}")
     tf32 = precision is None
     cudnn = torch.backends.cudnn
     matmul = torch.backends.cuda.matmul
-    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                     deterministic=cudnn.deterministic, allow_tf32=tf32):
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=False,
+                     deterministic=True, allow_tf32=tf32):
         # set after entering cudnn.flags, which also resets torch's
         # newer per-backend fp32 precision setting for its scope
         saved = matmul.allow_tf32
