@@ -21,20 +21,26 @@ c.phase_device(); c.phase_build(); c.phase_lightcnn()"``:
   main       STRise on full ResNet-101+L2 with random weights: 6,500
              masks, mean-EBP prior, blur fill 4%, scale 12, 2 elements,
              the fused-blend kernel, score_precision "high"; one warm-up
-             map, then 2 timed maps; the kernel must launch 102 times a map
+             map of 640 masks, then 1 timed map, launched with every host
+             sync refused; the kernel must launch 102 times a map
   branches   the same seed and prior on the materialized-mask branch:
              the same masks, agreeing scores and maps
   uniform_draws  STRise's uniform-prior masks of seeds 0 and 1 on the card
              and on the CPU: the same bits
   tf32       seed 1's map with score_precision=None (TF32 allowed), twice
   breakdown  where one map's time goes, on seed 1's map again
+  pipeline   seed 1 at "high" on the materialized-mask path (bench.py's),
+             with the launch's host uploads as they were before it
+             stopped waiting for the card (pageable and blocking), then as
+             they are: map seconds beside main's, the same bits; one
+             chunk's encode on each path's blend layout
   wb_parity  bench.py's whitebox 4-map mix (mean-EBP, contrastive,
              truncated-contrastive, weighted-subtree top-32) on the card
              and on the CPU, same weights: ResNet-101 at full widths with
              one block per stage, B=2, float32 sweep
   whitebox   the same mix on full ResNet-101+L2, B=8, bfloat16 sweep: one
              warm-up mix with every host sync refused during the launches,
-             then 3 timed mixes launched and drained as bench.py does;
+             then 2 timed mixes launched and drained as bench.py does;
              maps/s, peak memory, each stage's CUDA-event time, the host
              drain, launch against mix time (the sweep's kernels by device
              time: tools/torch_whitebox_profile.py)
@@ -44,6 +50,9 @@ c.phase_device(); c.phase_build(); c.phase_lightcnn()"``:
              run-to-run difference
   wsebp_bf16 one full-depth probe's weighted-subtree map, bfloat16 sweep
              against float32 sweep
+  bench      bench_torch.run through its real code on the same net at
+             reduced counts (2 timed mixes, 2 STRise maps at None and at
+             "high", 3 eval groups), its exact checks, its five lines
   eval_parity the inpainting game's evaluation core (TwinClsBatch: the
              blend+encode of every threshold mask, twin classification) on
              the card and on the CPU, same weights: ResNet-101 at full
@@ -53,7 +62,7 @@ c.phase_device(); c.phase_build(); c.phase_lightcnn()"``:
   eval       bench.py's eval workload (bench.py:117-194) on full
              ResNet-101+L2: 2 probe/twin pairs, 4 maps, 101 percentiles;
              one warm-up group with every host sync refused during its
-             launches and flush, then 10 timed groups with one in flight;
+             launches and flush, then 4 timed groups with one in flight;
              evals/s, peak memory, launch against group time, host IoU
              time, steps and rows per group, and one profiled group's
              device time by kernel group, the blend's share and idle share
@@ -136,7 +145,10 @@ c.phase_device(); c.phase_build(); c.phase_lightcnn()"``:
 
 Every phase that calls a path twice on the same inputs holds the two
 results to the same bits (repeat_diff, check_repeats): one input, one
-result, on every run of the card.  The variants and train phases also
+result, on every run of the card.  Every warm STRise.launch_evaluate
+(main's and tf32's through K1, pipeline's and bench's on the
+materialized-mask path; refs and gallery already embedded) runs with
+every host sync refused: the launch waits for the card nowhere.  The variants and train phases also
 time the previous form against the present one.  Two functions run
 alone, not by this script: phase_sources (which part of the previous
 form moved results from run to run) and phase_audit (the paths under
@@ -158,6 +170,8 @@ import warnings
 
 import numpy as np
 
+import bench_torch as BT
+
 # NVIDIA H100 SXM data sheet: HBM rate and float32 rate outside the
 # tensor cores (the kernels here do plain float32 arithmetic)
 HBM_BYTES_PER_S = 3.35e12
@@ -165,11 +179,11 @@ F32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12  # dense, on the tensor cores
 
 N_MASKS, CHUNK, SCALE, ELEMS, SIZE = 6500, 64, 12, 2, 224
-MAIN_SEEDS = (1, 2)  # the main path's timed STRise maps
-WB_B, WB_TOPK, WB_TIMED = 8, 32, 3  # bench.py's whitebox mix
-# bench.py's eval: 4 maps a probe group, 10 timed groups, 101 percentiles
-EVAL_MAPS, EVAL_GROUPS = 4, 10
-EVAL_PCT = np.unique(np.sort(np.append(np.arange(0, 100, 1), [0, 100])))
+MAIN_SEEDS = (1,)  # the main path's timed STRise maps
+WB_B, WB_TOPK, WB_TIMED = 8, 32, 2  # bench.py's whitebox mix
+# bench.py's eval: 4 maps a probe group, 101 percentiles; 4 timed groups
+# (bench_torch.py times bench.py's 10)
+EVAL_MAPS, EVAL_GROUPS = 4, 4
 
 
 _T0 = time.time()
@@ -305,14 +319,13 @@ def phase_device():
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    from xfr_torch.utils.device import card_name_and_power_limit
+
+    card = card_name_and_power_limit()
     emit("device", kind=torch.cuda.get_device_name(0),
-         count=torch.cuda.device_count(), nvidia_smi=smi,
+         count=torch.cuda.device_count(), card=card,
          torch=torch.__version__, cuda=torch.version.cuda)
-    return smi
+    return card
 
 
 def phase_build():
@@ -500,7 +513,7 @@ def main_path_net():
     return wb, {("resnetv6_pytorch", 6): wb, ("resnetv4_pytorch", None): wb}
 
 
-def make_main_path_strise(net_dict, seed, **kw):
+def make_main_path_strise(net_dict, seed, num_masks=N_MASKS, **kw):
     """The main path's STRise map for ``seed`` (bench.py's settings: 6,500
     masks, scale 12, 2 elements, blur fill 4%, mean-EBP prior), on one of
     four random probes with fixed refs and gallery.  ``kw`` adds the
@@ -512,7 +525,7 @@ def make_main_path_strise(net_dict, seed, **kw):
                   gallery=_images(3, 2), black_box="resnetv6_pytorch",
                   net_dict=net_dict, mask_scale=SCALE,
                   num_mask_elements=ELEMS, mask_fill_type="blur",
-                  blur_fill_sigma_percent=4, num_masks=N_MASKS, seed=seed,
+                  blur_fill_sigma_percent=4, num_masks=num_masks, seed=seed,
                   prior_type="mean_ebp", device="cuda", **kw)
 
 
@@ -568,7 +581,8 @@ def main_path():
     make = functools.partial(make_main_path_strise, net_dict)
 
     fused = dict(use_pallas_blend=True, score_precision="high")
-    check_map(make(0, **fused).launch_evaluate()())  # warm-up
+    # warm-up at 10 chunks: the same kernels, refs and gallery embedded
+    check_map(make(0, num_masks=10 * CHUNK, **fused).launch_evaluate()())
     torch.cuda.synchronize()
     per_map = -(-N_MASKS // CHUNK)
 
@@ -580,7 +594,9 @@ def main_path():
         c0 = FB.fused_mask_blend_preprocess.launches
         t0 = time.time()
         st = make(seed, **fused)
-        smap = st.launch_evaluate()()
+        with host_syncs_refused(True):
+            finish = st.launch_evaluate()
+        smap = finish()
         torch.cuda.synchronize()
         times.append(time.time() - t0)
         deltas.append(FB.fused_mask_blend_preprocess.launches - c0)
@@ -592,11 +608,12 @@ def main_path():
     emit("main", maps=len(MAIN_SEEDS), map_s=times,
          maps_per_s=len(MAIN_SEEDS) / sum(times),
          launches=launches, launches_per_map=deltas, expected=per_map,
-         peak_mem_bytes=peak, score_precision="high")
+         peak_mem_bytes=peak, score_precision="high",
+         launch_with_host_syncs_refused=True)
     if deltas != [per_map] * len(MAIN_SEEDS):
         raise AssertionError(f"fused_blend launched {deltas} times per "
                              f"map, expected {per_map}")
-    return wb, make, kept, launches
+    return wb, make, kept, launches, times[0]
 
 
 def phase_branches(make, st_k):
@@ -690,7 +707,9 @@ def phase_tf32(make, st_high):
     check_map(warm.launch_evaluate()())
     t0 = time.time()
     first = make(1, **kw)
-    check_map(first.launch_evaluate()())
+    with host_syncs_refused(True):
+        finish = first.launch_evaluate()
+    check_map(finish())
     torch.cuda.synchronize()
     times = [time.time() - t0]
     repeat = {"map": repeat_diff(first.saliency_map, warm.saliency_map),
@@ -698,6 +717,7 @@ def phase_tf32(make, st_high):
     sel_h, sel_t = st_high.mask_scores > 0, first.mask_scores > 0
     emit("tf32", map_s=times, maps_per_s=len(times) / sum(times),
          score_precision=None, repeat_of_warmup=repeat,
+         launch_with_host_syncs_refused=True,
          vs_high={"map_corr": float(np.corrcoef(
              first.saliency_map.ravel(), st_high.saliency_map.ravel())[0, 1]),
              "score_max_abs_diff": float(np.abs(
@@ -764,6 +784,139 @@ def phase_breakdown(wb, make, kernel_ms, st_k):
     check_repeats("breakdown", repeat)
 
 
+@contextlib.contextmanager
+def previous_uploads():
+    """STRise's launch with its host uploads as they were before it
+    stopped waiting for the card, swapped in for a block: ``_tensor``'s
+    pageable copy, MEAN_RGB uploaded at every preprocess and the blur's
+    gaussian at every blur, each a copy that waits for the card (the
+    draw's pinned uploads stay).  The values uploaded are the same."""
+    import torch
+    from xfr_torch.blackbox import masks as M
+    from xfr_torch.blackbox.strise import STRise
+    from xfr_torch.models import resnet101 as R
+
+    def tensor(self, a):
+        return torch.as_tensor(np.asarray(a) if not isinstance(
+            a, torch.Tensor) else a, dtype=torch.float32, device=self.device)
+
+    def gaussian(sigma, truncate, dtype, device):
+        radius = int(truncate * sigma + 0.5)
+        k = np.exp(-0.5 * (np.arange(-radius, radius + 1) / sigma) ** 2)
+        return torch.as_tensor(k / k.sum(), dtype=dtype, device=device)
+
+    def mean(dtype, device):
+        return torch.as_tensor(R.MEAN_RGB, dtype=dtype, device=device)
+
+    saved = STRise._tensor, M._gaussian_kernel, R.mean_rgb
+    STRise._tensor, M._gaussian_kernel, R.mean_rgb = tensor, gaussian, mean
+    try:
+        yield
+    finally:
+        STRise._tensor, M._gaussian_kernel, R.mean_rgb = saved
+
+
+def phase_pipeline(wb, make, main_s):
+    """What STRise's materialized-mask map (bench.py's path) costs beside
+    main's K1 map (PERF.md §7).  Seed 1 at "high", launched and finished,
+    first with previous_uploads, then as the port is, with every host
+    sync refused during the launch: the two maps must be the same bits.
+    ``main_s``: main's seed-1 map seconds (K1, "high").  Then one scoring
+    chunk's encode at "high" by CUDA events on the blends as each path
+    hands them over: the materialized path's preprocess permutes an
+    [N,H,W,3] blend (NHWC memory viewed as NCHW), K1 writes NCHW."""
+    import torch
+    from xfr_torch.blackbox.strise import _encode_and_score
+    from xfr_torch.utils.device import precision_scope
+
+    def one_map(refuse):
+        st = make(1, score_precision="high")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with host_syncs_refused(refuse):
+            finish = st.launch_evaluate()
+        smap = finish()
+        return time.time() - t0, smap
+
+    with previous_uploads():
+        prev_s, prev_map = one_map(False)
+    new_s, new_map = one_map(True)
+    check_map(new_map)
+    repeat = {"seed1": repeat_diff(new_map, prev_map)}
+
+    blend = torch.rand((CHUNK, SIZE, SIZE, 3), device="cuda") * 255
+    layouts = {"nhwc_view": blend.permute(0, 3, 1, 2),
+               "nchw": blend.permute(0, 3, 1, 2).contiguous()}
+    e = torch.randn((2, 512), device="cuda")
+    net = wb.net
+    with precision_scope("high"):
+        enc_ms = {k: cuda_ms(lambda x=x: _encode_and_score(
+            net.graph, net.encode_tensor, net.params, x, e, e),
+            reps=5, inner=2, warmup=1) for k, x in layouts.items()}
+    per_map = -(-N_MASKS // CHUNK)
+    emit("pipeline", score_precision="high", path="materialized masks",
+         previous_uploads_map_s=prev_s, map_s=new_s, main_k1_map_s=main_s,
+         launch_with_host_syncs_refused=True,
+         repeat_of_previous_form=repeat, encode_chunk_ms=enc_ms,
+         encode_per_map_s={k: v * per_map / 1e3 for k, v in enc_ms.items()})
+    check_repeats("pipeline", repeat)
+
+
+@contextlib.contextmanager
+def warm_launches_held():
+    """Every STRise.launch_evaluate in the block runs with every host sync
+    refused, but the first on each refs list (it embeds the refs and the
+    gallery, and fetches them to the host, as a cold launch must).
+    Yields the counts {"cold", "held"}."""
+    from xfr_torch.blackbox.strise import STRise
+
+    launch = STRise.launch_evaluate
+    seen, counts = [], {"cold": 0, "held": 0}
+
+    def held(self, *a, **kw):
+        if not any(r is self.refs for r in seen):
+            seen.append(self.refs)
+            counts["cold"] += 1
+            return launch(self, *a, **kw)
+        with host_syncs_refused(True):
+            out = launch(self, *a, **kw)
+        counts["held"] += 1
+        return out
+
+    STRise.launch_evaluate = held
+    try:
+        yield counts
+    finally:
+        STRise.launch_evaluate = launch
+
+
+BENCH_COUNTS = dict(wb_iters=2, bb_maps=2, bb_high_maps=2, eval_groups=3)
+
+
+def phase_bench(wb):
+    """bench_torch.run through its real code on ``wb`` (full
+    ResNet-101+L2, bfloat16 sweep) at BENCH_COUNTS, with its exact
+    checks; bench_torch prints its five lines.  Every STRise launch but
+    the warm-up of each function runs with every host sync refused; K1
+    must launch 0 times (bench.py keeps it off)."""
+    from xfr_torch.utils.device import card_name_and_power_limit
+
+    card = card_name_and_power_limit()
+    k1_0 = k1_launches()
+    with warm_launches_held() as counts:
+        recs = BT.run(wb, card, **BENCH_COUNTS)
+    k1 = k1_launches() - k1_0
+    wb.net.reset_classifier()
+    # each function: maps 1..n and the rerun of seed 0 after the warm-up
+    held = BENCH_COUNTS["bb_maps"] + BENCH_COUNTS["bb_high_maps"] + 2
+    emit("bench", counts=BENCH_COUNTS, lines=len(recs), launches=counts,
+         k1_launches=k1)
+    check_no_k1("bench", k1)
+    if counts != {"cold": 2, "held": held}:
+        raise AssertionError(f"bench: STRise launches {counts}, expected "
+                             f"2 cold and {held} held")
+
+
 # ---------------------------------------------------------------------------
 # Whitebox 4-map mix (bench.py:197-263)
 # ---------------------------------------------------------------------------
@@ -785,25 +938,6 @@ def whitebox_net(device, layers=None, seed=2, dtype=None):
                                 dtype=dtype),
         encode_tensor=enc, classifier_pname="fc2", num_classes=65359)
     return Whitebox(net, ebp_version=6, ebp_subtree_mode="norelu")
-
-
-def whitebox_workload(wb, B, seed=0):
-    """bench.py's whitebox inputs on the net's device: two mate and two
-    nonmate images (0..50) whose mean encodings, unit-normed, make the
-    triplet classifiers, and B probes."""
-    import torch
-
-    rng = np.random.RandomState(seed)
-    dev = wb.device
-
-    def imgs(n):
-        return torch.as_tensor(rng.rand(n, 3, SIZE, SIZE) * 50,
-                               dtype=torch.float32, device=dev)
-
-    mates, nonmates = imgs(2), imgs(2)
-    em, en = (e / e.norm() for e in (wb.encode(mates).mean(0),
-                                     wb.encode(nonmates).mean(0)))
-    return {"probes": imgs(B), "em": em, "en": en}
 
 
 @contextlib.contextmanager
@@ -845,44 +979,6 @@ def check_no_k1(phase, k1):
         raise AssertionError(f"the {phase} path launched K1 {k1} times")
 
 
-def launch_mix(wb, w, refuse_syncs=False, mode="norelu"):
-    """Enqueue the 4-map mix as bench.py does: every method's device work
-    before any host read; the classifier swaps between launches are safe
-    because each launch takes the params it was given.  ``mode`` is the
-    weighted subtree's (the net's default: norelu for the ResNets,
-    affineonly_with_prior for LightCNN)."""
-    import torch
-
-    probes, em, en = w["probes"], w["em"], w["en"]
-    B = probes.shape[0]
-    wb.net.reset_classifier()
-    Pn = torch.ones((B, wb.net.num_classes()), device=probes.device)
-    with host_syncs_refused(refuse_syncs):
-        pooled, _ = wb._ebp_pooled_fn()(wb.net.params, probes, Pn)
-    wb.set_triplet_classifier_batch((em / 2500.0).expand(B, -1),
-                                    (en / 2500.0).expand(B, -1))
-    with host_syncs_refused(refuse_syncs):
-        finish_ct = wb.launch_contrastive_ebp_batch_both(probes, 20)
-    wb.set_triplet_classifier_batch(em.expand(B, -1), en.expand(B, -1))
-    with host_syncs_refused(refuse_syncs):
-        finish_ws = wb.launch_weighted_subtree_ebp_batch(
-            probes, topk=WB_TOPK, subtree_mode=mode)
-    return pooled, finish_ct, finish_ws
-
-
-def drain_mix(wb, launched):
-    """The host side of one mix: {method: [B maps]} plus the selected
-    subtrees of each probe."""
-    pooled, finish_ct, finish_ws = launched
-    pooled = pooled.cpu().numpy()
-    contr, trunc = finish_ct()
-    ws = finish_ws()
-    return {"mean_ebp": [wb._mwp_to_saliency(p) for p in pooled],
-            "contrastive": contr, "truncated_contrastive": trunc,
-            "weighted_subtree": [r[0] for r in ws],
-            "subtrees": [r[3] for r in ws]}
-
-
 def check_wb_maps(out, shape=(112, 112)):
     """Every {method: [maps]} entry: saliency maps of ``shape`` (the
     plane of the net's first conv), finite, non-negative, unit mass."""
@@ -904,12 +1000,12 @@ def phase_wb_parity():
 
     wbs = {dev: whitebox_net(dev, layers=(1, 1, 1, 1))
            for dev in ("cpu", "cuda")}
-    w_cpu = whitebox_workload(wbs["cpu"], 2, seed=1)
+    w_cpu = BT.whitebox_workload(wbs["cpu"], np.random.RandomState(1), B=2)
     ws = {"cpu": w_cpu, "cuda": {k: v.cuda() for k, v in w_cpu.items()}}
     out, secs = {}, {}
     for dev in ("cuda", "cpu", "cuda"):  # the first card mix warms up
         t0 = time.time()
-        out[dev] = drain_mix(wbs[dev], launch_mix(wbs[dev], ws[dev]))
+        out[dev] = BT.drain_mix(wbs[dev], BT.launch_mix(wbs[dev], ws[dev]))
         secs[dev] = time.time() - t0
     for o in out.values():
         check_wb_maps(o)
@@ -991,7 +1087,9 @@ def run_mix(wb, w, mode="norelu", shape=(112, 112), profile=True):
     B = w["probes"].shape[0]
     t0 = time.time()
     k1_0 = k1_launches()
-    out = drain_mix(wb, launch_mix(wb, w, refuse_syncs=True, mode=mode))
+    with host_syncs_refused(True):
+        launched = BT.launch_mix(wb, w, mode=mode)
+    out = BT.drain_mix(wb, launched)
     torch.cuda.synchronize()
     warm_s = time.time() - t0
     check_wb_maps(out, shape)
@@ -1004,21 +1102,21 @@ def run_mix(wb, w, mode="norelu", shape=(112, 112), profile=True):
     times, launch_s, drain_s, drained = [], [], [], []
     t0 = time.time()
     tl = time.time()
-    prev = launch_mix(wb, w, mode=mode)
+    prev = BT.launch_mix(wb, w, mode=mode)
     launch_s.append(time.time() - tl)
     for _ in range(WB_TIMED - 1):
         tl = time.time()
-        st = launch_mix(wb, w, mode=mode)
+        st = BT.launch_mix(wb, w, mode=mode)
         launch_s.append(time.time() - tl)
         td = time.time()
-        drained.append(drain_mix(wb, prev))
+        drained.append(BT.drain_mix(wb, prev))
         check_wb_maps(drained[-1], shape)
         drain_s.append(time.time() - td)
         t1 = time.time()
         times.append(t1 - t0)
         t0, prev = t1, st
     td = time.time()
-    last = drain_mix(wb, prev)
+    last = BT.drain_mix(wb, prev)
     check_wb_maps(last, shape)
     drain_s.append(time.time() - td)
     times.append(time.time() - t0)
@@ -1027,9 +1125,9 @@ def run_mix(wb, w, mode="norelu", shape=(112, 112), profile=True):
     # one mix alone: the launch call against the whole mix
     torch.cuda.synchronize()
     t0 = time.time()
-    st = launch_mix(wb, w, mode=mode)
+    st = BT.launch_mix(wb, w, mode=mode)
     one_launch = time.time() - t0
-    lone = drain_mix(wb, st)
+    lone = BT.drain_mix(wb, st)
     one_mix = time.time() - t0
     repeats = {name: max(repeat_diff(o[name], out[name])
                          for o in drained + [last, lone]) for name in out}
@@ -1064,7 +1162,7 @@ def phase_whitebox():
 
     wb = whitebox_net("cuda")
     wb.wsebp_dtype = torch.bfloat16
-    w = whitebox_workload(wb, WB_B)
+    w = BT.whitebox_workload(wb, np.random.RandomState(0), WB_B)
     emit("whitebox", **run_mix(wb, w))
     emit("whitebox_previous_form", **mix_form_cost(wb, w))
     return wb, w
@@ -1095,7 +1193,7 @@ def mix_form_cost(wb, w, attribute=()):
         with in_form(form):
             torch.cuda.synchronize()
             t0 = time.time()
-            out = drain_mix(wb, launch_mix(wb, w))
+            out = BT.drain_mix(wb, BT.launch_mix(wb, w))
             torch.cuda.synchronize()
         return time.time() - t0, out
 
@@ -1132,8 +1230,8 @@ def phase_sources():
 
     wb = whitebox_net("cuda")
     wb.wsebp_dtype = torch.bfloat16
-    w = whitebox_workload(wb, WB_B)
-    drain_mix(wb, launch_mix(wb, w))
+    w = BT.whitebox_workload(wb, np.random.RandomState(0), WB_B)
+    BT.drain_mix(wb, BT.launch_mix(wb, w))
     emit("sources", **mix_form_cost(
         wb, w, attribute=("scatter_only", "scatter_only", "cudnn_only",
                           "cudnn_only")))
@@ -1173,86 +1271,6 @@ def phase_wsebp_bf16(wb, w):
 # ---------------------------------------------------------------------------
 # Inpainting-game evaluation stage (bench.py:117-194)
 # ---------------------------------------------------------------------------
-
-
-def eval_workload(wb, seed=0, percentiles=EVAL_PCT, chw=(3, SIZE, SIZE)):
-    """bench.py's eval inputs: 2 probe/twin pairs (probe 0..50, twin =
-    probe + 0..30), galleries of 2 noisy copies each (unit-normed mean
-    encodings from ``wb``), 4 saliency maps with the salient box
-    [60:120, 80:150] and the same ground-truth box; percent-density,
-    seed 7, zero elements excluded.  ``chw`` is the net's input shape; the
-    box scales with it."""
-    rng = np.random.RandomState(seed)
-    C, H, W = chw
-    pairs = []
-    for _ in range(2):
-        orig = (rng.rand(C, H, W) * 50).astype(np.float32)
-        inp = orig + (rng.rand(C, H, W) * 30).astype(np.float32)
-        pairs.append((orig, inp))
-
-    def embed(ims):
-        e = wb.embeddings(np.stack(ims))
-        e = e / np.linalg.norm(e, axis=1, keepdims=True)
-        m = e.mean(axis=0, keepdims=True)
-        return m / np.linalg.norm(m, axis=1, keepdims=True)
-
-    gals = [(embed([o + rng.rand(C, H, W).astype(np.float32)
-                    for _ in range(2)]),
-             embed([i + rng.rand(C, H, W).astype(np.float32)
-                    for _ in range(2)]))
-            for o, i in pairs]
-    box = (slice(60 * H // SIZE, 120 * H // SIZE),
-           slice(80 * W // SIZE, 150 * W // SIZE))
-    smaps = []
-    for _ in range(EVAL_MAPS):
-        smap = rng.rand(H, W)
-        smap[box] += 4.0
-        smaps.append(smap / smap.sum())
-    gt = np.zeros((H, W), bool)
-    gt[box] = True
-    return {"pairs": pairs, "gals": gals, "smaps": smaps, "gt": gt,
-            "kw": dict(mask_threshold_method="percent-density",
-                       percentiles=percentiles, seed=7,
-                       include_zero_elements=False)}
-
-
-def launch_eval_group(wb, w, p, refuse_syncs=False):
-    """One probe group as bench.py's launch_group: the 4 maps of pair p
-    into one TwinClsBatch, each map's host IoU curve computed after its
-    launch, then the flush that enqueues the one multi-map program.
-    Returns (finishes, IoU curves, host IoU seconds)."""
-    from xfr_torch.inpainting_game import protocol as ipg
-
-    orig, inp = w["pairs"][p % 2]
-    og, ig = w["gals"][p % 2]
-    batch = ipg.TwinClsBatch(wb, orig, inp, og, ig, **w["kw"])
-    fins, ious, iou_s = [], [], 0.0
-    for smap in w["smaps"]:
-        with host_syncs_refused(refuse_syncs):
-            fins.append(batch.launch(smap))
-        t0 = time.time()
-        kw = w["kw"]
-        ious.append(ipg.intersect_over_union_thresholded_saliency(
-            smap, w["gt"], kw["mask_threshold_method"],
-            percentiles=kw["percentiles"], seed=kw["seed"],
-            include_zero_elements=kw["include_zero_elements"]))
-        iou_s += time.time() - t0
-    with host_syncs_refused(refuse_syncs):
-        batch.flush()
-    return fins, ious, iou_s
-
-
-def drain_eval_group(launched):
-    """Finish a group and check it: every classification vector has T
-    entries and a false first entry; distances and IoU curves finite."""
-    fins, ious, _ = launched
-    out = [f() for f in fins]
-    T = len(ious[0])
-    for (cls, pg, pr), iou in zip(out, ious):
-        assert len(cls) == T and not cls[0], (len(cls), cls[:3])
-        assert np.isfinite(pg).all() and np.isfinite(pr).all()
-        assert np.isfinite(iou).all() and len(iou) == T
-    return out
 
 
 @contextlib.contextmanager
@@ -1297,7 +1315,7 @@ def eval_group_profile(wb, w):
             profile(activities=[ProfilerActivity.CPU,
                                 ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        drain_eval_group(launch_eval_group(wb, w, 0))
+        BT.drain_eval_group(BT.launch_eval_group(wb, w, 0))
         torch.cuda.synchronize()
         wall = time.time() - t0
     rows, blend = [], None
@@ -1351,7 +1369,8 @@ def phase_eval_parity():
     pct = np.linspace(0, 100, 21)
     wbs = {dev: whitebox_net(dev, layers=(1, 1, 1, 1))
            for dev in ("cpu", "cuda")}
-    w = eval_workload(wbs["cpu"], seed=1, percentiles=pct)
+    w = BT.eval_workload(wbs["cpu"], np.random.RandomState(1),
+                         percentiles=pct)
     orig, inp = w["pairs"][0]
     og, ig = w["gals"][0]
 
@@ -1417,12 +1436,13 @@ def phase_eval():
 
     t0 = time.time()
     wb = whitebox_net("cuda")
-    w = eval_workload(wb)
+    w = BT.eval_workload(wb, np.random.RandomState(0))
     k1_before = FB.fused_mask_blend_preprocess.launches
     # the first result of each pair: every later group of the pair must
     # give the same classifications and distances bit for bit
-    seen = {0: drain_eval_group(launch_eval_group(wb, w, 0,
-                                                  refuse_syncs=True))}
+    with host_syncs_refused(True):
+        launched = BT.launch_eval_group(wb, w, 0)
+    seen = {0: BT.drain_eval_group(launched)}
     torch.cuda.synchronize()
     warm_s = time.time() - t0
     wb._upload_memo.clear()  # the first timed group pays its upload again
@@ -1439,7 +1459,7 @@ def phase_eval():
 
     def launch(p):
         tl = time.time()
-        g = launch_eval_group(wb, w, p)
+        g = BT.launch_eval_group(wb, w, p)
         launch_s.append(time.time() - tl)
         iou_s.append(g[2])
         return g
@@ -1448,20 +1468,20 @@ def phase_eval():
     pend = launch(0)
     for p in range(1, EVAL_GROUPS):
         nxt = launch(p)
-        check(p - 1, drain_eval_group(pend))
+        check(p - 1, BT.drain_eval_group(pend))
         t1 = time.time()
         times.append(t1 - t0)
         t0, pend = t1, nxt
-    check(EVAL_GROUPS - 1, drain_eval_group(pend))
+    check(EVAL_GROUPS - 1, BT.drain_eval_group(pend))
     times.append(time.time() - t0)
     peak = torch.cuda.max_memory_allocated()
 
     torch.cuda.synchronize()
     with blend_steps_counted() as count:
         t0 = time.time()
-        g = launch_eval_group(wb, w, 1)
+        g = BT.launch_eval_group(wb, w, 1)
         one_launch = time.time() - t0
-        check(1, drain_eval_group(g))
+        check(1, BT.drain_eval_group(g))
         one_group = time.time() - t0
     prof, _ = eval_group_profile(wb, w)
     k1 = FB.fused_mask_blend_preprocess.launches - k1_before
@@ -1510,7 +1530,7 @@ def phase_wsebp_parity():
 
     wbs = {dev: whitebox_net(dev, layers=(1, 1, 1, 1))
            for dev in ("cpu", "cuda")}
-    w = whitebox_workload(wbs["cpu"], 1, seed=3)
+    w = BT.whitebox_workload(wbs["cpu"], np.random.RandomState(3), B=1)
     for dev, wb in wbs.items():
         wb.net.set_triplet_classifier(w["em"].to(dev), w["en"].to(dev))
     res, secs = {}, {}
@@ -1980,18 +2000,20 @@ def run_eval_group(wb, chw):
     its launches and flush: its wall time, evals/s and peak memory."""
     import torch
 
-    w = eval_workload(wb, chw=chw)
-    drain_eval_group(launch_eval_group(wb, w, 0, refuse_syncs=True))
+    w = BT.eval_workload(wb, np.random.RandomState(0), chw=chw)
+    with host_syncs_refused(True):
+        launched = BT.launch_eval_group(wb, w, 0)
+    BT.drain_eval_group(launched)
     torch.cuda.synchronize()
     wb._upload_memo.clear()
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    g = launch_eval_group(wb, w, 1)
+    g = BT.launch_eval_group(wb, w, 1)
     launch_s = time.time() - t0
-    drain_eval_group(g)
+    BT.drain_eval_group(g)
     group_s = time.time() - t0
-    return {"maps": EVAL_MAPS, "percentiles": len(EVAL_PCT),
+    return {"maps": EVAL_MAPS, "percentiles": len(BT.PERCENTILES),
             "input": list(chw), "launch_s": launch_s, "group_s": group_s,
             "evals_per_s": EVAL_MAPS / group_s,
             "peak_mem_bytes": torch.cuda.max_memory_allocated()}
@@ -2038,7 +2060,8 @@ def phase_vggface2():
     wb = create_wbnet("vggface2_resnet50", device="cuda")
     net_s = time.time() - t0
     wb.wsebp_dtype = torch.bfloat16
-    mix = run_mix(wb, whitebox_workload(wb, WB_B),
+    mix = run_mix(wb, BT.whitebox_workload(wb, np.random.RandomState(0),
+                                            WB_B),
                   mode=wb.ebp_subtree_mode())
     emit("vggface2", net="vggface2_resnet50", net_s=net_s,
          nodes=len(wb.net.graph.nodes), events=wb.net.graph.n_events,
@@ -2080,7 +2103,7 @@ def phase_variants():
     (percentile_argmax, top 1 and 8), each called once to warm up, then
     timed, the two results the same bit for bit (top 1 after top 8, whose
     rank walk it shares, runs once), every map non-zero, and top 8 in
-    the previous and the present form in turns (previous_form); at one
+    the previous and the present form (previous_form); at one
     block a stage the same calls at event 37 (a BatchNorm there) plus
     subtree_ebp(mode="percentile") on
     the card and on the CPU, same weights, in float64 and in float32.
@@ -2134,9 +2157,9 @@ def phase_variants():
             repeats[name] = repeat_diff(res, first)
         if not np.isfinite(m).all() or m.min() < 0 or not m.max() > 0:
             raise AssertionError(f"variant {name}: bad map {full[name]}")
-    # subtree_ebp at top 8 in the previous form and the new one in turns
+    # subtree_ebp at top 8 in the previous form and the new one
     form_s = {}
-    for form in ("previous", "new", "new", "previous"):
+    for form in ("previous", "new"):
         with in_form(form):
             torch.cuda.synchronize()
             t0 = time.time()
@@ -3088,11 +3111,13 @@ def mesh_workloads(wb, w, ew, net_dict, mesh=None, strise_batch=CHUNK):
     res, rec = {}, {}
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
-    first = drain_mix(wb, launch_mix(wb, w, refuse_syncs=True))
+    with host_syncs_refused(True):
+        launched = BT.launch_mix(wb, w)
+    first = BT.drain_mix(wb, launched)
     mix_s = []
     for _ in range(MESH_TIMED):
         t0 = start()
-        out = drain_mix(wb, launch_mix(wb, w))
+        out = BT.drain_mix(wb, BT.launch_mix(wb, w))
         torch.cuda.synchronize()
         mix_s.append(time.time() - t0)
     check_wb_maps(out)
@@ -3119,11 +3144,13 @@ def mesh_workloads(wb, w, ew, net_dict, mesh=None, strise_batch=CHUNK):
                          1 if mesh is None else mesh.size(0)),
                      "raw_range": float(raw.max() - raw.min())}
 
-    drain_eval_group(launch_eval_group(wb, ew, 0, refuse_syncs=True))
+    with host_syncs_refused(True):
+        launched = BT.launch_eval_group(wb, ew, 0)
+    BT.drain_eval_group(launched)
     eval_s = []
     for _ in range(3):
         t0 = start()
-        got = drain_eval_group(launch_eval_group(wb, ew, 0))
+        got = BT.drain_eval_group(BT.launch_eval_group(wb, ew, 0))
         eval_s.append(time.time() - t0)
     for i, (cls, pg, pr) in enumerate(got):
         res["eval_cls%d" % i] = np.asarray(cls)
@@ -3322,11 +3349,11 @@ def phase_mesh():
 
     wb, net_dict = main_path_net()
     wb.wsebp_dtype = torch.bfloat16
-    w = whitebox_workload(wb, WB_B)
-    ew = eval_workload(wb)
+    w = BT.whitebox_workload(wb, np.random.RandomState(0), WB_B)
+    ew = BT.eval_workload(wb, np.random.RandomState(0))
     plain, plain_rec = mesh_workloads(wb, w, ew, net_dict)
     # (b)'s exact references: the rows a rank runs, as plain calls
-    halves = [mix_results(drain_mix(wb, launch_mix(
+    halves = [mix_results(BT.drain_mix(wb, BT.launch_mix(
         wb, dict(w, probes=w["probes"][i:i + WB_B // 2]))))
         for i in (0, WB_B // 2)]
     wb.net.reset_classifier()
@@ -3507,14 +3534,14 @@ def phase_audit():
     # the generator preprocesses its jobs' images
     wb.net._preprocess = functools.partial(R101.preprocess_resnet101,
                                            device="cuda")
-    w = whitebox_workload(wb, 2)
+    w = BT.whitebox_workload(wb, np.random.RandomState(0), B=2)
     x1 = w["probes"][:1]
     net_dict = {("resnetv6_pytorch", 6): wb, ("resnetv4_pytorch", None): wb,
                 ("resnetv4_pytorch", 6): wb}
     probe, ref, gal = _images(8, 3)
 
     def mix():
-        drain_mix(wb, launch_mix(wb, w))
+        BT.drain_mix(wb, BT.launch_mix(wb, w))
         wb.net.reset_classifier()
 
     def per_probe():
@@ -3540,7 +3567,8 @@ def phase_audit():
         st.launch_evaluate()()
 
     def eval_group():
-        drain_eval_group(launch_eval_group(wb, eval_workload(wb), 0))
+        BT.drain_eval_group(BT.launch_eval_group(
+            wb, BT.eval_workload(wb, np.random.RandomState(0)), 0))
 
     def generator():
         with tempfile.TemporaryDirectory() as tmp:
@@ -3594,20 +3622,22 @@ def main():
     # a batched vjp that fell back to a per-row loop would say so
     warnings.filterwarnings("error", message=".*performance drop.*")
     t_start = time.time()
-    smi = phase_device()
+    card = phase_device()
     phase_build()
     k1 = phase_kernel()
     phase_precision()
     phase_prior()
-    wb, make, st_k, launches = main_path()
+    wb, make, st_k, launches, main_s = main_path()
     phase_branches(make, st_k)
     phase_tf32(make, st_k)
     phase_breakdown(wb, make, k1["ms"], st_k)
+    phase_pipeline(wb, make, main_s)
     k1["launches"] = launches
     del wb, make, st_k
     phase_wb_parity()
     wb, w = phase_whitebox()
     phase_wsebp_bf16(wb, w)
+    phase_bench(wb)
     del wb, w
     phase_eval_parity()
     phase_eval()
@@ -3625,7 +3655,8 @@ def main():
     phase_mesh()
     phase_demos()
     emit("done", seconds=time.time() - t_start)
-    print(smi, flush=True)
+    # as nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
+    print(f"{card['name']}, {card['power_limit']}", flush=True)
     print(json.dumps({"kernels": [k1]}), flush=True)
     result = {"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -136,14 +136,65 @@ def test_slice_matches_jax(nets, jax_result, use_fused_blend, monkeypatch):
                                rtol=0, atol=1e-3)
 
 
+def _spy_uploads(monkeypatch):
+    """Record every tensor that goes through ``utils.device.to_device``
+    (the upload caches emptied first) from the modules that upload, and
+    fail a host array that ``torch.as_tensor`` or ``torch.tensor`` would
+    place on a device itself: on the card that copy waits for the card."""
+    from xfr_torch.blackbox import masks as M
+    from xfr_torch.blackbox import strise as S
+    from xfr_torch.models import resnet101 as R
+    from xfr_torch.utils import device as D
+
+    M._gaussian_kernel.cache_clear()
+    R.mean_rgb.cache_clear()
+    seen = []
+
+    def spy(t, device):
+        seen.append((tuple(t.shape), t.dtype))
+        return D.to_device(t, device)
+
+    def guard(make):
+        def placed(data, *a, **kw):
+            if kw.get("device") is not None and \
+                    not isinstance(data, torch.Tensor):
+                raise AssertionError("a host array placed on a device "
+                                     "without utils.device.to_device")
+            return make(data, *a, **kw)
+        return placed
+
+    for mod in (M, S, R):
+        monkeypatch.setattr(mod, "to_device", spy)
+    monkeypatch.setattr(torch, "as_tensor", guard(torch.as_tensor))
+    monkeypatch.setattr(torch, "tensor", guard(torch.tensor))
+    return seen
+
+
 @pytest.mark.parametrize("use_fused_blend", [False, True])
-def test_launch_evaluate_matches_evaluate(nets, use_fused_blend):
+def test_launch_evaluate_matches_evaluate(nets, use_fused_blend,
+                                          monkeypatch):
     kw = _kwargs(nets[1], use_pallas_blend=use_fused_blend)
     st_a = STRise(device="cpu", **kw)
     st_a.evaluate()
     st_b = STRise(device="cpu", **kw)
-    smap = st_b.launch_evaluate()()
+    # the launch's host uploads (the refs and gallery are memoized by
+    # st_a) all go through utils.device.to_device
+    with monkeypatch.context() as mp:
+        seen = _spy_uploads(mp)
+        finish = st_b.launch_evaluate()
+    for want in [((224, 224, 3), torch.uint8), ((3,), torch.float32),
+                 ((40, 64), torch.float32), ((40, 2), torch.int32)]:
+        assert want in seen, (want, seen)
+    # the probe's, refs' and gallery's embeddings
+    assert seen.count(((1, 12), torch.float32)) == 3, seen
+    # the gaussians of the prior, of its downscale to the grid and of
+    # the blur fill
+    assert len({s for s, d in seen if len(s) == 1 and s != (3,)}) == 3
+    smap = finish()
     np.testing.assert_array_equal(st_b.saliency_map, smap)
+    if use_fused_blend:
+        # the same finish as evaluate()'s: the same bits
+        np.testing.assert_array_equal(smap, st_a.saliency_map)
     assert smap.flags.writeable and st_b.mask_scores.flags.writeable
     # the materialized branch finishes on the device (_select_combine_fn),
     # evaluate() on the host: the same float32 arithmetic, another order
@@ -264,11 +315,12 @@ def test_entry_points_refuse_missing_card_and_mesh(nets):
 
 
 def test_port_imports_no_jax():
-    """Every module of xfr_torch, as pkgutil.walk_packages finds them, and
-    chip_smoke import without JAX, jaxlib or xfr_tpu."""
+    """Every module of xfr_torch, as pkgutil.walk_packages finds them,
+    chip_smoke and bench_torch import without JAX, jaxlib or xfr_tpu."""
     code = ("import importlib, pkgutil, sys, xfr_torch; "
             "names = [m.name for m in pkgutil.walk_packages("
-            "xfr_torch.__path__, 'xfr_torch.')] + ['chip_smoke']; "
+            "xfr_torch.__path__, 'xfr_torch.')] + ['chip_smoke', "
+            "'bench_torch']; "
             "[importlib.import_module(n) for n in names]; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'xfr_tpu')]; "

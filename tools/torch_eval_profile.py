@@ -5,9 +5,10 @@ its time on one CUDA card.
     python3 -m tools.torch_eval_profile [--out DIR]
 
 The workload is chip_smoke.py's eval phase, built by its
-``whitebox_net``, ``eval_workload``, ``launch_eval_group`` and
-``drain_eval_group`` (bench.py:117-194): full-depth ResNet-101+L2 with
-random weights, one probe/twin pair and its galleries, 4 saliency maps,
+``whitebox_net`` and bench_torch.py's ``eval_workload``,
+``launch_eval_group`` and ``drain_eval_group`` (bench.py:117-194):
+full-depth ResNet-101+L2 with random weights, one probe/twin pair and
+its galleries, 4 saliency maps,
 101 percent-density thresholds, the 4 maps' blend+encode steps in one
 TwinClsBatch program, TF32 allowed in the encode.  Run it from the repo
 root.  After one warm-up group it times one group by the host clock
@@ -26,8 +27,9 @@ goes to DIR/eval_profile.txt (default DIR: build/profiles, git-ignored).
 import argparse
 import json
 import os
-import subprocess
 import time
+
+import numpy as np
 
 from tools.torch_strise_profile import group_of
 
@@ -41,11 +43,12 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_eval_profile: no CUDA device")
-    from chip_smoke import (drain_eval_group, eval_group_profile,
-                            eval_workload, launch_eval_group, whitebox_net)
+    from bench_torch import drain_eval_group, eval_workload, launch_eval_group
+    from chip_smoke import eval_group_profile, whitebox_net
+    from xfr_torch.utils.device import card_name_and_power_limit
 
     wb = whitebox_net("cuda")
-    w = eval_workload(wb)
+    w = eval_workload(wb, np.random.RandomState(0))
 
     def one_group():
         torch.cuda.synchronize()
@@ -59,10 +62,7 @@ def main():
     summary, rows = eval_group_profile(wb, w)
     os.makedirs(args.out, exist_ok=True)
     path = os.path.join(args.out, "eval_profile.txt")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    card = card_name_and_power_limit()
     with open(path, "w") as f:
         f.write(f"{torch.cuda.get_device_name(0)}  one eval group: 4 maps, "
                 "101 thresholds, ResNet-101+L2, TF32 encode\n"
@@ -72,7 +72,7 @@ def main():
                     f"{name[:160]}\n")
     print(json.dumps({
         "profile": "eval_group", "maps": 4,
-        "kind": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+        "kind": torch.cuda.get_device_name(0), **card,
         "group_s": wall, **summary,
         "top": [{"ms": us / 1e3, "count": c, "name": n[:120]}
                 for us, c, n in rows[:12]],

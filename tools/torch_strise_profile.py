@@ -21,7 +21,6 @@ every kernel by device time goes to DIR/strise_profile_<precision>.txt
 import argparse
 import json
 import os
-import subprocess
 import time
 
 import numpy as np
@@ -56,6 +55,7 @@ def main():
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from xfr_torch.utils.device import card_name_and_power_limit
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_strise_profile: no CUDA device")
@@ -93,10 +93,7 @@ def main():
         g["launches"] += count
     os.makedirs(args.out, exist_ok=True)
     path = os.path.join(args.out, f"strise_profile_{args.precision}.txt")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    card = card_name_and_power_limit()
     with open(path, "w") as f:
         f.write(f"{torch.cuda.get_device_name(0)}  score_precision="
                 f"{precision}\n device_ms  count  group  kernel\n")
@@ -105,7 +102,7 @@ def main():
                     f"{name[:160]}\n")
     print(json.dumps({
         "profile": "strise_map", "score_precision": precision,
-        "kind": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+        "kind": torch.cuda.get_device_name(0), **card,
         "map_s": wall, "map_s_profiled": wall_prof, "device_busy_s": busy_s,
         "idle_share": 1.0 - busy_s / wall_prof,
         "groups": dict(sorted(groups.items(), key=lambda kv: -kv[1]["s"])),

@@ -5,7 +5,8 @@ one CUDA card.
     python3 -m tools.torch_whitebox_profile [--out DIR]
 
 The workload is chip_smoke.py's whitebox phase, built by its
-``whitebox_net``, ``whitebox_workload``, ``launch_mix`` and ``drain_mix``:
+``whitebox_net`` and bench_torch.py's ``whitebox_workload``,
+``launch_mix`` and ``drain_mix``:
 full-depth ResNet-101+L2 with random weights, B=8 probes, mean-EBP,
 contrastive and truncated-contrastive under the em/2500 triplet
 classifiers, weighted-subtree top-32 in norelu mode with the sweep in
@@ -28,8 +29,9 @@ build/profiles, git-ignored).
 import argparse
 import json
 import os
-import subprocess
 import time
+
+import numpy as np
 
 from tools.torch_strise_profile import group_of
 
@@ -79,16 +81,17 @@ def main():
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from xfr_torch.utils.device import card_name_and_power_limit
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_whitebox_profile: no CUDA device")
-    from chip_smoke import (WB_B, drain_mix, launch_mix, whitebox_net,
-                            whitebox_workload)
+    from bench_torch import drain_mix, launch_mix, whitebox_workload
+    from chip_smoke import WB_B, whitebox_net
 
     labels = annotate()
     wb = whitebox_net("cuda")
     wb.wsebp_dtype = torch.bfloat16
-    w = whitebox_workload(wb, WB_B)
+    w = whitebox_workload(wb, np.random.RandomState(0), WB_B)
 
     def one_mix():
         t0 = time.time()
@@ -123,10 +126,7 @@ def main():
         g["launches"] += count
     os.makedirs(args.out, exist_ok=True)
     path = os.path.join(args.out, "whitebox_profile.txt")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    card = card_name_and_power_limit()
     with open(path, "w") as f:
         f.write(f"{torch.cuda.get_device_name(0)}  whitebox mix, B={WB_B}, "
                 "bfloat16 sweep\n device_ms  count  group  kernel\n")
@@ -135,7 +135,7 @@ def main():
                     f"{name[:160]}\n")
     print(json.dumps({
         "profile": "whitebox_mix", "batch": WB_B, "maps": 4 * WB_B,
-        "kind": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+        "kind": torch.cuda.get_device_name(0), **card,
         "mix_s": wall, "mix_s_profiled": wall_prof, "device_busy_s": busy_s,
         "idle_share": 1.0 - busy_s / wall_prof,
         "kernel_launches": sum(r[1] for r in rows),

@@ -16,13 +16,14 @@ the same grids and shifts.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from xfr_torch.utils.device import precision_scope
+from xfr_torch.utils.device import precision_scope, to_device
 
 
 def gaussian_blur(img, sigma, truncate=4.0):
@@ -32,10 +33,8 @@ def gaussian_blur(img, sigma, truncate=4.0):
     [N, H, W]."""
     if sigma <= 0:
         return img
-    radius = int(truncate * float(sigma) + 0.5)
-    xs = np.arange(-radius, radius + 1)
-    k = np.exp(-0.5 * (xs / float(sigma)) ** 2)
-    k = torch.as_tensor(k / k.sum(), dtype=img.dtype, device=img.device)
+    k = _gaussian_kernel(float(sigma), float(truncate), img.dtype, img.device)
+    radius = (k.shape[0] - 1) // 2
 
     def blur_axis(a, axis):
         a = torch.movedim(a, axis, -1)
@@ -51,6 +50,17 @@ def gaussian_blur(img, sigma, truncate=4.0):
         if img.ndim == 2 or (img.ndim == 3 and img.shape[-1] in (1, 3, 4)):
             return blur_axis(blur_axis(img, 0), 1)
         return blur_axis(blur_axis(img, 1), 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _gaussian_kernel(sigma, truncate, dtype, device):
+    """The normalized 1-D gaussian of ``sigma`` out to ``truncate`` sigmas,
+    built on the host and uploaded once per (sigma, truncate, dtype,
+    device) through :func:`to_device`."""
+    radius = int(truncate * sigma + 0.5)
+    xs = np.arange(-radius, radius + 1)
+    k = np.exp(-0.5 * (xs / sigma) ** 2)
+    return to_device(torch.as_tensor(k / k.sum(), dtype=dtype), device)
 
 
 def resize_bilinear(img, shape):
@@ -104,15 +114,6 @@ def check_grid_capacity(prior_shape, mask_scale, num_elements, pct=50.0):
             "guaranteed positive cells after the %g%%-percentile prior "
             "clip (~%d): raise mask_scale resolution or lower "
             "num_mask_elements" % (num_elements, gh, gw, pct, avail))
-
-
-def to_device(t, device):
-    """``t`` on ``device``: a host tensor goes to a card as a pinned copy
-    that does not wait for the card."""
-    device = torch.device(device)
-    if t.device.type == "cpu" and device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
 
 
 def gumbel_noise(generator, num_masks, num_cells, device):

@@ -35,7 +35,8 @@ import numpy as np
 import torch
 
 from xfr_torch.blackbox import masks as M
-from xfr_torch.utils.device import precision_scope, resolve_device
+from xfr_torch.utils.device import precision_scope, resolve_device, \
+    to_device
 from xfr_torch.utils.image import center_crop
 
 
@@ -206,8 +207,13 @@ class STRise:
         return wb
 
     def _tensor(self, a):
-        return torch.as_tensor(np.asarray(a) if not isinstance(
-            a, torch.Tensor) else a, dtype=torch.float32, device=self.device)
+        """``a`` as float32 on the STRise device.  A host array goes up
+        through ``utils.device.to_device`` (pinned, without waiting for the
+        card) in its own dtype and is cast there: the same float32
+        values."""
+        if not isinstance(a, torch.Tensor):
+            a = torch.as_tensor(np.asarray(a))
+        return to_device(a, self.device).to(torch.float32)
 
     # -- step 1: prior --------------------------------------------------------
 
@@ -253,7 +259,7 @@ class STRise:
             M.check_grid_capacity(
                 prior.shape, self.mask_scale, self.num_mask_elements,
                 pct=0.0 if self.prior_type == "uniform" else 50.0)
-            grid_probs = M.to_device(M.prior_to_grid(
+            grid_probs = to_device(M.prior_to_grid(
                 prior, self.mask_scale, self.prior_type), self.device)
             self._grids_dev = M.sample_sparse_grids(
                 self._gen, grid_probs, self.num_masks,
@@ -454,7 +460,7 @@ class STRise:
         order over the padded mask count (the drain's collective).
         Without a mesh: every chunk, and the identity."""
         from xfr_torch.blackbox.fused_blend import fused_mask_blend_preprocess
-        from xfr_torch.models.resnet101 import MEAN_RGB, \
+        from xfr_torch.models.resnet101 import mean_rgb, \
             preprocess_resnet101_batch
         from xfr_torch.parallel import mesh as MS
 
@@ -477,8 +483,7 @@ class STRise:
             spans = [(c * bs, (c + 1) * bs) for c in range(lo, hi)]
 
         if kernel:
-            mean = torch.as_tensor(MEAN_RGB, dtype=torch.float32,
-                                   device=self.device)
+            mean = mean_rgb(torch.float32, self.device)
             grids = self._grids_dev.float().contiguous()
             shifts = self._shifts_dev.to(torch.int32).contiguous()
             probe, fill = probe.contiguous(), fill.contiguous()
@@ -576,16 +581,18 @@ class STRise:
                      self.triplet_scoring_fn ==
                      self.contrastive_triplet_similarity)
 
+            # refs and gallery repeat across a job's probes: a memo miss
+            # fetches their embeddings to the host, a hit waits for nothing
             ref_e = self._embed_collection_memo(wb, self.refs)
             gal_e = self._embed_collection_memo(wb, self.gallery)
-            if fused:
-                pe_kernel, probe_fetch = self._launch_probe_embed(wb)
-            else:
-                probe_e = self._embed_collection_memo(wb, [self.probe])
-                self.original_probe_ref_scores = _l2_similarity(probe_e,
-                                                                ref_e)
-                self.original_probe_gallery_scores = _l2_similarity(
-                    probe_e, gal_e)
+            # the probe's embedding is enqueued and fetched by the drain
+            pe_kernel, probe_fetch = self._launch_probe_embed(wb)
+
+            def original_scores():
+                pe = probe_fetch()
+                self.original_probe_ref_scores = _l2_similarity(pe, ref_e)
+                self.original_probe_gallery_scores = _l2_similarity(pe,
+                                                                    gal_e)
 
             probe = self._tensor(self.probe)
             ref_e_d = self._tensor(ref_e)
@@ -622,11 +629,7 @@ class STRise:
                     self.masked_probe_ref_scores = rs_all.cpu().numpy()[:n]
                     self.masked_probe_gallery_scores = \
                         gs_all.cpu().numpy()[:n]
-                    pe = probe_fetch()
-                    self.original_probe_ref_scores = \
-                        _l2_similarity(pe, ref_e)
-                    self.original_probe_gallery_scores = \
-                        _l2_similarity(pe, gal_e)
+                    original_scores()
                     self.mask_scores = cts_d.cpu().numpy()
                     if float(npos_d) == 0:
                         raise ValueError(
@@ -648,6 +651,7 @@ class STRise:
                 rs_all, gs_all = gathered()
                 self.masked_probe_ref_scores = rs_all.cpu().numpy()[:n]
                 self.masked_probe_gallery_scores = gs_all.cpu().numpy()[:n]
+                original_scores()
                 self.mask_scores = self.triplet_scoring_fn()
 
             return drain
@@ -784,9 +788,12 @@ class STRise:
 
     def launch_evaluate(self, verbose=False):
         """evaluate() split for cross-probe pipelining: prior, masks, fill
-        and all scoring work ENQUEUE here (no sync on the mask scores); the
-        returned finish() closure drains the scores, computes the saliency
-        map and returns it.  Results are identical to evaluate()."""
+        and all scoring work ENQUEUE here; the returned finish() closure
+        drains the scores, computes the saliency map and returns it.
+        Results are identical to evaluate().  With the built-in matcher,
+        once the refs' and gallery's embeddings are in the shared net's
+        memo, the launch waits for the card nowhere: every host upload
+        goes pinned and non-blocking through ``utils.device.to_device``."""
         if verbose:
             print_flush("launch: prior/masks/fill/scoring enqueue...")
         self.priors[self.prior_type]()

@@ -13,10 +13,13 @@ conversion is mechanical (models/convert.py).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from xfr_torch.graph import GraphBuilder
+from xfr_torch.utils.device import to_device
 
 MEAN_RGB = np.array([122.782, 117.001, 104.298])
 
@@ -95,8 +98,14 @@ def preprocess_resnet101(im, device="cuda"):
                            device=device)
 
 
+@functools.lru_cache(maxsize=None)
+def mean_rgb(dtype, device):
+    """MEAN_RGB as a [3] tensor of ``dtype`` on ``device``, uploaded once
+    per (dtype, device) and without waiting for the card."""
+    return to_device(torch.as_tensor(MEAN_RGB, dtype=dtype), device)
+
+
 def preprocess_resnet101_batch(images):
     """Batched preprocessing on the images' device: [N,H,W,3] float [0,255]
     RGB tensor -> [N,3,H,W] mean-subtracted."""
-    mean = torch.as_tensor(MEAN_RGB, dtype=images.dtype, device=images.device)
-    return (images - mean).permute(0, 3, 1, 2)
+    return (images - mean_rgb(images.dtype, images.device)).permute(0, 3, 1, 2)

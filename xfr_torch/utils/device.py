@@ -8,6 +8,7 @@ back to the CPU on its own.
 from __future__ import annotations
 
 import contextlib
+import subprocess
 
 import torch
 
@@ -26,6 +27,30 @@ def resolve_device(device="cuda"):
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def to_device(t, device):
+    """``t`` on ``device``: a host tensor goes to a card as a pinned copy
+    that does not wait for the card.  ``pin_memory`` copies ``t`` into a
+    new pinned buffer, which the caching host allocator keeps alive until
+    the upload has run, so the caller may overwrite ``t`` at once."""
+    device = torch.device(device)
+    if t.device.type == "cpu" and device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def card_name_and_power_limit():
+    """The first card's ``{"name", "power_limit"}`` as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them
+    ("NVIDIA H100 80GB HBM3", "700.00 W"): a measurement on the card is
+    reported beside them."""
+    line = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    name, power_limit = line.rsplit(",", 1)
+    return {"name": name.strip(), "power_limit": power_limit.strip()}
 
 
 @contextlib.contextmanager
