@@ -1273,57 +1273,37 @@ def phase_wsebp_bf16(wb, w):
 # ---------------------------------------------------------------------------
 
 
-@contextlib.contextmanager
-def blend_steps_counted(ranged=False):
-    """Count the blend+encode steps and rows (one call of the engine's
-    ``_threshold_blend`` per step) for a block; with ``ranged`` each call
-    also runs in the profiler range "eval:blend"."""
-    from torch.profiler import record_function
-    from xfr_torch.ebp import engine
-
-    fn = engine._threshold_blend
-    count = {"steps": 0, "rows": 0}
-
-    def counted(counts, t0, T, orig, inp, rows):
-        count["steps"] += 1
-        count["rows"] += rows.shape[0]
-        if not ranged:
-            return fn(counts, t0, T, orig, inp, rows)
-        with record_function("eval:blend"):
-            return fn(counts, t0, T, orig, inp, rows)
-
-    engine._threshold_blend = counted
-    try:
-        yield count
-    finally:
-        engine._threshold_blend = fn
-
-
 def eval_group_profile(wb, w):
-    """One eval group launched and drained under torch.profiler, with the
-    blend in its own range.  Returns (summary, kernel rows): the group's
-    wall time, device busy time (every kernel and copy; one stream),
-    idle share, device time by kernel group and of the blend's kernels,
+    """One eval group launched and drained under torch.profiler, which
+    records the program's spans and counters.  Returns (summary, kernel
+    rows): the group's wall time, device busy time (every kernel and
+    copy; one stream), idle share, device time by kernel group and of the
+    blend's kernels (span ``xfr.eval.blend``), the blend+encode steps and
+    rows encoded (counters ``xfr.eval.steps``, ``xfr.eval.rows_encoded``),
     and the (device us, launches, kernel name) rows."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from tools.torch_strise_profile import group_of
+    from xfr_torch.utils.profiling import counters
 
     torch.cuda.synchronize()
-    with blend_steps_counted(ranged=True) as count, \
-            profile(activities=[ProfilerActivity.CPU,
-                                ProfilerActivity.CUDA]) as prof:
+    before = counters()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         BT.drain_eval_group(BT.launch_eval_group(wb, w, 0))
         torch.cuda.synchronize()
         wall = time.time() - t0
+    count = {k: counters().get(k, 0) - before.get(k, 0)
+             for k in ("xfr.eval.steps", "xfr.eval.rows_encoded")}
     rows, blend = [], None
     for e in prof.key_averages():
-        if e.key == "eval:blend":
-            # the range's CUDA row is its span on the device's timeline,
-            # not a kernel: only its CPU row's kernel time is kept
-            if e.device_type == DeviceType.CPU:
+        if e.key.startswith("xfr."):
+            # a span's CUDA row is its extent on the device's timeline,
+            # not a kernel: only the blend's CPU row's kernel time is kept
+            if e.key == "xfr.eval.blend" and \
+                    e.device_type == DeviceType.CPU:
                 blend = {"ms": e.device_time_total / 1e3, "calls": e.count}
         elif e.device_type == DeviceType.CUDA and \
                 e.self_device_time_total > 0:
@@ -1341,7 +1321,8 @@ def eval_group_profile(wb, w):
     return ({"group_s_profiled": wall, "device_busy_s": busy_s,
              "idle_share": 1.0 - busy_s / wall,
              "kernel_launches": sum(r[1] for r in rows),
-             "blend": blend, "steps": count["steps"], "rows": count["rows"],
+             "blend": blend, "steps": count["xfr.eval.steps"],
+             "rows": count["xfr.eval.rows_encoded"],
              "groups": dict(sorted(groups.items(),
                                    key=lambda kv: -kv[1]["ms"]))}, rows)
 
@@ -1477,12 +1458,11 @@ def phase_eval():
     peak = torch.cuda.max_memory_allocated()
 
     torch.cuda.synchronize()
-    with blend_steps_counted() as count:
-        t0 = time.time()
-        g = BT.launch_eval_group(wb, w, 1)
-        one_launch = time.time() - t0
-        check(1, BT.drain_eval_group(g))
-        one_group = time.time() - t0
+    t0 = time.time()
+    g = BT.launch_eval_group(wb, w, 1)
+    one_launch = time.time() - t0
+    check(1, BT.drain_eval_group(g))
+    one_group = time.time() - t0
     prof, _ = eval_group_profile(wb, w)
     k1 = FB.fused_mask_blend_preprocess.launches - k1_before
     T = len(w["kw"]["percentiles"])
@@ -1491,15 +1471,16 @@ def phase_eval():
          warmup_s=warm_s, peak_mem_bytes=peak, launch_s=launch_s,
          host_iou_s=iou_s, one_group={"launch_s": one_launch,
                                       "group_s": one_group},
-         steps_per_group=count["steps"], rows_per_group=count["rows"],
+         steps_per_group=prof["steps"], rows_per_group=prof["rows"],
          rows_used=EVAL_MAPS * T, profile=prof, k1_launches=k1,
          encode_precision="TF32 allowed",
          repeat_max_abs_diff=max(repeat), repeats=len(repeat))
     check_repeats("eval", {"groups": max(repeat)})
     if k1 != 0:
         raise AssertionError(f"the eval path launched K1 {k1} times")
-    if count["rows"] != count["steps"] * wb.blend_batch:
-        raise AssertionError(f"eval steps {count}")
+    if prof["rows"] != prof["steps"] * wb.blend_batch:
+        raise AssertionError(f"eval steps {prof['steps']}, rows "
+                             f"{prof['rows']}")
 
 
 # ---------------------------------------------------------------------------

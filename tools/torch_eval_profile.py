@@ -13,8 +13,9 @@ its galleries, 4 saliency maps,
 TwinClsBatch program, TF32 allowed in the encode.  Run it from the repo
 root.  After one warm-up group it times one group by the host clock
 (ended by a synchronize), then runs one more under torch.profiler with
-the mask build and blend of every step (the engine's
-``_threshold_blend``) in a named range.
+the mask build and blend of every step (the program's span
+``xfr.eval.blend``), the steps and rows from its counters
+(``xfr.eval.steps``, ``xfr.eval.rows_encoded``).
 
 It prints one JSON line: the group's wall time without and with the
 profiler, the device busy time (every kernel and copy; one stream), the

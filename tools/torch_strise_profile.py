@@ -79,11 +79,13 @@ def main():
         wall_prof = one_map(2)
 
     # device-side rows only: a CPU op's row also carries the device time
-    # of the kernels it launched
+    # of the kernels it launched, and a span's (xfr.*) CUDA row is its
+    # extent on the device's timeline, not a kernel
     rows = [(e.self_device_time_total, e.count, e.key)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0
+            and not e.key.startswith("xfr.")]
     rows.sort(reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
     groups = {}

@@ -38,6 +38,7 @@ from xfr_torch.blackbox import masks as M
 from xfr_torch.utils.device import precision_scope, resolve_device, \
     to_device
 from xfr_torch.utils.image import center_crop
+from xfr_torch.utils.profiling import span
 
 
 def print_flush(s, file=sys.stdout, flush=True):
@@ -775,7 +776,8 @@ class STRise:
     def evaluate(self):
         steps = 5
         print_flush("1/{} Computing prior...".format(steps))
-        self.priors[self.prior_type]()
+        with span("xfr.bb.prior"):
+            self.priors[self.prior_type]()
         print_flush("2/{} Generating masks...".format(steps))
         self.generate_masks()
         print_flush("3/{} Applying masks...".format(steps))
@@ -794,25 +796,33 @@ class STRise:
         once the refs' and gallery's embeddings are in the shared net's
         memo, the launch waits for the card nowhere: every host upload
         goes pinned and non-blocking through ``utils.device.to_device``."""
-        if verbose:
-            print_flush("launch: prior/masks/fill/scoring enqueue...")
-        self.priors[self.prior_type]()
-        self.generate_masks()
-        self.apply_masks()
-        drain = self._score_masks_launch(want_fused_finish=True)
-        fused = self._fused_finish
-        self._fused_finish = None
+        with span("xfr.bb.launch"):
+            if verbose:
+                print_flush("launch: prior/masks/fill/scoring enqueue...")
+            with span("xfr.bb.prior"):
+                self.priors[self.prior_type]()
+            # the host draw, the grid and their upload
+            with span("xfr.bb.masks"):
+                self.generate_masks()
+            self.apply_masks()
+            # memo lookups, the probe's encode, the chunks, the combine
+            with span("xfr.bb.score"):
+                drain = self._score_masks_launch(want_fused_finish=True)
+            fused = self._fused_finish
+            self._fused_finish = None
         if fused is not None:
             def finish():
-                fused()
-                return self.saliency_map
+                with span("xfr.bb.finish"):
+                    fused()
+                    return self.saliency_map
 
             return finish
 
         def finish():
-            drain()
-            self.compute_saliency_map()
-            return self.saliency_map
+            with span("xfr.bb.finish"):
+                drain()
+                self.compute_saliency_map()
+                return self.saliency_map
 
         return finish
 

@@ -47,6 +47,7 @@ from xfr_torch.ebp import interpreter as I
 from xfr_torch.graph import GraphDef
 from xfr_torch.parallel import mesh as MS
 from xfr_torch.utils.device import precision_scope
+from xfr_torch.utils.profiling import count, span
 
 
 def _percentile_mass_mask(mwp, percentile, batch_dims=0):
@@ -1674,8 +1675,9 @@ class Whitebox:
                                 device=counts.device)[:, None]
             out = None
             for i, (m, t0, p) in enumerate(steps):
-                blends = _threshold_blend(c_all[m][None], t0, T, origs[p],
-                                          inps[p], rows)
+                with span("xfr.eval.blend"):
+                    blends = _threshold_blend(c_all[m][None], t0, T,
+                                              origs[p], inps[p], rows)
                 with precision_scope(None):
                     e = I.forward_clean(graph, params, blends,
                                         keep=(enc,))[enc].reshape(bs, -1)
@@ -1702,12 +1704,17 @@ class Whitebox:
                  for t0 in range(0, nchunk * bs, bs)]
         n = len(steps)
         steps += [(0, nchunk * bs, 0)] * ((-n) % self._dp)
+        count("xfr.eval.steps", len(steps))
+        count("xfr.eval.rows_encoded", len(steps) * bs)
+        count("xfr.eval.rows_needed", M * T)
         if self.mesh is not None:
             lo, hi = MS.local_rows(self.mesh, len(steps))
             steps = steps[lo:hi]
-        gather = self._gathered(self._blend_encode_mono_multi_local(T, bs)(
-            self.net.params, origs, inps, self._upload(counts_mat), steps),
-            n=n * bs)
+        with span("xfr.eval.encode"):
+            gather = self._gathered(
+                self._blend_encode_mono_multi_local(T, bs)(
+                    self.net.params, origs, inps, self._upload(counts_mat),
+                    steps), n=n * bs)
 
         def finish():
             out = gather().reshape(M, nchunk * bs, -1)[:, :T]
@@ -1750,11 +1757,12 @@ class Whitebox:
         unit norm along the last axis in numpy (float32)."""
 
         def finish():
-            embeds = out.cpu().numpy()
-            if norm:
-                embeds = embeds / np.linalg.norm(embeds, axis=-1,
-                                                 keepdims=True)
-            return embeds
+            with span("xfr.eval.finish"):
+                embeds = out.cpu().numpy()
+                if norm:
+                    embeds = embeds / np.linalg.norm(embeds, axis=-1,
+                                                     keepdims=True)
+                return embeds
 
         return finish
 

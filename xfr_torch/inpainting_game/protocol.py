@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from xfr_torch.utils.profiling import span
+
 
 def _threshold_plane(saliency_map, threshold_method, percentiles=None,
                      thresholds=None, seed=None, max_noise=1e-9,
@@ -97,15 +99,18 @@ def launch_classified_as_inpainted_twin(snet, original_imT, inpaint_imT,
                  and original_imT.shape[0] in (1, 3)
                  and hasattr(snet, "launch_blend_embeddings"))
 
-    plane = thr = None
+    plane = thr = counts = None
     if device_ok:
-        plane, thr = _threshold_plane(
-            saliency_map, mask_threshold_method, percentiles=percentiles,
-            thresholds=thresholds, seed=seed,
-            include_zero_elements=include_zero_elements)
-    counts_ok = (device_ok
-                 and hasattr(snet, "launch_blend_embeddings_counts")
-                 and len(thr) <= 255 and bool(np.all(np.diff(thr) <= 0)))
+        with span("xfr.eval.plane"):
+            plane, thr = _threshold_plane(
+                saliency_map, mask_threshold_method, percentiles=percentiles,
+                thresholds=thresholds, seed=seed,
+                include_zero_elements=include_zero_elements)
+            if (hasattr(snet, "launch_blend_embeddings_counts")
+                    and len(thr) <= 255 and bool(np.all(np.diff(thr) <= 0))):
+                counts = np.searchsorted(np.sort(thr), plane.ravel(),
+                                         side="left").astype(np.uint8)
+    counts_ok = counts is not None
     if not counts_ok:
         masks = (plane[np.newaxis] > thr[:, np.newaxis, np.newaxis]) \
             if plane is not None else create_threshold_masks(
@@ -123,8 +128,6 @@ def launch_classified_as_inpainted_twin(snet, original_imT, inpaint_imT,
         # (#(thr_t < plane[p]), one searchsorted) replaces the [T,H,W]
         # materialization entirely — same integers as masks.sum(0).
         if counts_ok:
-            counts = np.searchsorted(np.sort(thr), plane.ravel(),
-                                     side="left").astype(np.uint8)
             finish_embeds = snet.launch_blend_embeddings_counts(
                 original_imT, inpaint_imT, counts, len(thr), norm=True)
         else:
@@ -221,19 +224,22 @@ class TwinClsBatch:
                      and self._finish_embeds is None)  # not yet flushed
         if not device_ok:
             return self._single(saliency_map)
-        plane, thr = _threshold_plane(
-            saliency_map, self.mask_threshold_method,
-            percentiles=self.percentiles, thresholds=self.thresholds,
-            seed=self.seed,
-            include_zero_elements=self.include_zero_elements)
-        if not (len(thr) <= 255 and bool(np.all(np.diff(thr) <= 0))):
+        with span("xfr.eval.plane"):
+            plane, thr = _threshold_plane(
+                saliency_map, self.mask_threshold_method,
+                percentiles=self.percentiles, thresholds=self.thresholds,
+                seed=self.seed,
+                include_zero_elements=self.include_zero_elements)
+            mono = len(thr) <= 255 and bool(np.all(np.diff(thr) <= 0))
+            if mono:
+                counts = np.searchsorted(np.sort(thr), plane.ravel(),
+                                         side="left").astype(np.uint8)
+        if not mono:
             return self._single(saliency_map)
         if self._T is None:
             self._T = len(thr)
         assert len(thr) == self._T, (
             "all maps of a TwinClsBatch must share one threshold schedule")
-        counts = np.searchsorted(np.sort(thr), plane.ravel(),
-                                 side="left").astype(np.uint8)
         idx = len(self._counts)
         self._counts.append(counts)
 
@@ -358,22 +364,23 @@ def intersect_over_union_thresholded_saliency(
     comparisons, so ``sort + searchsorted`` yields the identical
     integers (mask t = ``plane > thr[t]``; #(plane > thr) =
     N - #(plane <= thr))."""
-    ground_truth = ground_truth.astype(bool)
-    plane, thr = _threshold_plane(
-        saliency_map, mask_threshold_method, percentiles=percentiles,
-        thresholds=thresholds, seed=seed,
-        include_zero_elements=include_zero_elements)
+    with span("xfr.eval.iou"):
+        ground_truth = ground_truth.astype(bool)
+        plane, thr = _threshold_plane(
+            saliency_map, mask_threshold_method, percentiles=percentiles,
+            thresholds=thresholds, seed=seed,
+            include_zero_elements=include_zero_elements)
 
-    flat = plane.ravel()
-    all_sorted = np.sort(flat)
-    gt_flat = ground_truth.ravel()
-    gt_sorted = np.sort(flat[gt_flat])
-    mask_cnt = flat.size - np.searchsorted(all_sorted, thr, side="right")
-    true_pos = gt_sorted.size - np.searchsorted(gt_sorted, thr,
-                                                side="right")
-    n_gt = gt_sorted.size
-    union = n_gt + mask_cnt - true_pos
-    iou = true_pos / (union + 1e-9)
+        flat = plane.ravel()
+        all_sorted = np.sort(flat)
+        gt_flat = ground_truth.ravel()
+        gt_sorted = np.sort(flat[gt_flat])
+        mask_cnt = flat.size - np.searchsorted(all_sorted, thr, side="right")
+        true_pos = gt_sorted.size - np.searchsorted(gt_sorted, thr,
+                                                    side="right")
+        n_gt = gt_sorted.size
+        union = n_gt + mask_cnt - true_pos
+        iou = true_pos / (union + 1e-9)
     ret = (iou,)
     if return_fpos:
         ret += (mask_cnt - true_pos,)

@@ -4,12 +4,29 @@
 records a ``torch.profiler`` trace (the CPU, and the card when there is
 one), where the JAX package uses ``jax.profiler``: the trace file goes to
 ``logdir`` for tensorboard or perfetto.
+
+``span`` and ``count`` are the program's own spans and counters at its
+layer boundaries.  They are live exactly while a ``torch.profiler``
+records in the process (``device_trace``, or any other profiler): a span
+is then a ``record_function`` range, so it lands in the trace as a
+``user_annotation`` event on the clock of the kernels and copies, nested
+in the span that encloses it on the same thread.  While they are live,
+``span_seconds()`` totals each span's host seconds and ``counters()``
+each counter.  With no profiler recording, each costs one check: ``span``
+returns one shared null context and ``count`` returns at once.
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
+
+import torch
+from torch._C._autograd import _profiler_enabled
+
+_NULL = contextlib.nullcontext()
+_counters = {}
+_span_seconds = {}
 
 
 class Timer:
@@ -43,8 +60,8 @@ class Timer:
 @contextlib.contextmanager
 def device_trace(logdir):
     """torch.profiler trace of the block, written to ``logdir`` as a
-    ``*.pt.trace.json`` file; yields the profiler (``key_averages()``)."""
-    import torch
+    ``*.pt.trace.json`` file; yields the profiler (``key_averages()``).
+    The program's spans are in it."""
     from torch.profiler import ProfilerActivity, profile, \
         tensorboard_trace_handler
 
@@ -54,3 +71,49 @@ def device_trace(logdir):
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(logdir)) as prof:
         yield prof
+
+
+class _Span:
+    """A live span: a ``record_function`` range, its host seconds added
+    to ``span_seconds()`` on exit."""
+
+    __slots__ = ("name", "_range", "_t0")
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        self._range = torch.profiler.record_function(self.name)
+        self._range.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self._t0
+        self._range.__exit__(*exc)
+        _span_seconds[self.name] = _span_seconds.get(self.name, 0.0) + dt
+        return False
+
+
+def span(name):
+    """A context for the program step ``name``: a profiler range while a
+    torch.profiler records, else the shared null context."""
+    if not _profiler_enabled():
+        return _NULL
+    return _Span(name)
+
+
+def count(name, n=1):
+    """Add ``n`` to the counter ``name`` while a torch.profiler records."""
+    if _profiler_enabled():
+        _counters[name] = _counters.get(name, 0) + n
+
+
+def counters():
+    """{name: total} of every counter so far in this process."""
+    return dict(_counters)
+
+
+def span_seconds():
+    """{name: host seconds} of every span so far in this process."""
+    return dict(_span_seconds)
