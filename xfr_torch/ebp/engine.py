@@ -24,7 +24,10 @@ plain function that enqueues its work on the current stream, and a
 ``lax.scan`` becomes a Python loop over its steps.  No launch path reads
 a device value on the host before its ``finish()``.  Every float32 EBP
 program runs with TF32 off (``precision_scope("high")``, the TPU's
-bf16_3x); ``encode`` and the blend+encode programs allow TF32.
+bf16_3x); ``encode`` and the blend+encode programs allow TF32.  On a
+card, the encode of a monotone blend+encode step is captured once as a
+CUDA graph and replayed for every later step (``_EncodeGraph``), so a
+step costs the host a few launches instead of one a graph node.
 
 The device mesh (``use_mesh``): the JAX package places one global batch
 over a mesh from one process.  Here every rank of a ``torch.distributed``
@@ -122,6 +125,41 @@ def _threshold_blend(counts, t0, T, orig, inp, rows):
     return (1.0 - mk) * orig[None] + mk * inp[None]
 
 
+class _EncodeGraph:
+    """An encode of the static input buffer ``x`` [bs, C, H, W], captured
+    once as a CUDA graph on a side stream with its own memory pool, after
+    one eager warm-up there (cuDNN's and cuBLAS's handles, plans and
+    workspaces are made outside the capture).  ``replay()`` runs the
+    graph's kernels again on the current stream, on what ``x`` holds then,
+    and returns the static [bs, D] output; the next replay overwrites it,
+    so a caller copies it out on the same stream before handing it on.
+    The graph reads the parameters at the addresses they had when it was
+    captured.  Capturing waits once for the card (``torch.cuda.graph``
+    synchronizes before it begins); a replay waits for nothing."""
+
+    @staticmethod
+    def engages(device):
+        """Whether steps on ``device`` replay a graph: on a card only."""
+        return device.type == "cuda"
+
+    def __init__(self, encode, x):
+        with torch.cuda.device(x.device):
+            main = torch.cuda.current_stream()
+            side = torch.cuda.Stream()
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                encode(x)
+            main.wait_stream(side)
+            self.x = x
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                self.y = encode(x)
+
+    def replay(self):
+        self.graph.replay()
+        return self.y
+
+
 def _interleave_rows(diag):
     """[B, B] -> ([B, 2B] with diag[i, j] at column 2j, the same at column
     2j+1): rows that select each probe's mate (even) or nonmate (odd)
@@ -176,6 +214,8 @@ class WhiteboxNetwork(torch.nn.Module):
         self.name = name
         self._orig_classifier = dict(params).get(classifier_pname)
         self._orig_num_classes = num_classes
+        # captured step encodes (captured_encode), keyed by what they baked
+        self.encode_graphs = {}
 
     @property
     def device(self):
@@ -189,6 +229,7 @@ class WhiteboxNetwork(torch.nn.Module):
         # reach it here
         move = lambda p: {k: fn(v) for k, v in p.items()}
         self.params = {k: move(p) for k, p in self.params.items()}
+        self.clear()
         if self._orig_classifier is not None:
             self._orig_classifier = move(self._orig_classifier)
         return super()._apply(fn, recurse)
@@ -233,10 +274,49 @@ class WhiteboxNetwork(torch.nn.Module):
         out = self.graph.output_id
         return I.forward_clean(self.graph, self.params, x, keep=(out,))[out]
 
+    def captured_encode(self, params, shape, dtype):
+        """The encode of a [bs, C, H, W] batch of ``dtype`` under
+        ``params``, TF32 allowed, as an ``_EncodeGraph``: captured on first
+        use, then kept, keyed by the input's shape and dtype, the device,
+        the precision scope and the addresses of the parameter tensors the
+        encode reads.  A key with other parameter addresses (the
+        parameters were replaced) drops the graphs of the old ones."""
+        precision = None
+        graph, enc = self.graph, self.encode_tensor
+        ids = tuple(v.data_ptr() for pn in self._encode_pnames()
+                    for v in params.get(pn, {}).values())
+        key = (tuple(shape), dtype, self.device, precision, ids)
+        got = self.encode_graphs.get(key)
+        if got is None:
+            for k in [k for k in self.encode_graphs if k[-1] != ids]:
+                del self.encode_graphs[k]
+
+            def encode(x):
+                with precision_scope(precision):
+                    e = I.forward_clean(graph, params, x, keep=(enc,))[enc]
+                return e.reshape(x.shape[0], -1)
+
+            got = self.encode_graphs[key] = _EncodeGraph(
+                encode, torch.zeros(shape, dtype=dtype, device=self.device))
+            count("xfr.eval.graph_captures")
+        return got
+
+    def _encode_pnames(self):
+        """Names of the parameters the encode reads: those of the nodes
+        up to the one that computes the embedding."""
+        names = []
+        for node in self.graph.nodes:
+            if node.pname:
+                names.append(node.pname)
+            if node.out == self.encode_tensor:
+                return names
+        return names
+
     def clear(self):
-        """Hook-state clearing in the reference; the functional interpreter
-        keeps no per-call layer state, so this is a no-op kept for API
-        parity."""
+        """Drops the captured step encodes (``captured_encode``); the
+        reference clears its hooks' state here, of which the functional
+        interpreter keeps none."""
+        self.encode_graphs.clear()
 
 
 class Whitebox:
@@ -1614,7 +1694,8 @@ class Whitebox:
     # the host float64 blends cast to float32 bit for bit.  The JAX
     # package's lax.scan over (map, chunk-start) steps is a Python loop
     # here; each step encodes the same [bs, C, H, W] batch as there,
-    # rows past T included, into one preallocated output.
+    # rows past T included, into one preallocated output.  On a card the
+    # monotone steps replay one captured encode (``captured_encode``).
 
     def _upload(self, arr):
         """A host array as a tensor on the net's device.  On the card it
@@ -1664,6 +1745,14 @@ class Whitebox:
         and counts[p] >= T - t), blend pair p's probe toward its twin,
         encode, and write the rows into the step's block of the output.
 
+        On a card the blend is copied into the static input of the
+        captured encode of a [bs, C, H, W] batch, the graph is replayed and
+        its static output copied into the step's block, all on the current
+        stream: the next step, or the next launch while this one's
+        ``finish()`` has not read ``out``, overwrites the static buffers
+        only after that copy.  Elsewhere each step's blend is encoded
+        eagerly.
+
         local(params, origs [P,C,H,W], inps, counts [M, H*W] uint8,
         steps) -> out [len(steps) * bs, D] in step order, allocated once
         the first step has given D."""
@@ -1673,14 +1762,23 @@ class Whitebox:
             c_all = counts.to(torch.int32)
             rows = torch.arange(bs, dtype=torch.int32,
                                 device=counts.device)[:, None]
+            captured = None
+            if _EncodeGraph.engages(counts.device):
+                captured = self.net.captured_encode(
+                    params, (bs,) + tuple(origs.shape[1:]), origs.dtype)
             out = None
             for i, (m, t0, p) in enumerate(steps):
                 with span("xfr.eval.blend"):
                     blends = _threshold_blend(c_all[m][None], t0, T,
                                               origs[p], inps[p], rows)
-                with precision_scope(None):
-                    e = I.forward_clean(graph, params, blends,
-                                        keep=(enc,))[enc].reshape(bs, -1)
+                if captured is None:
+                    with precision_scope(None):
+                        e = I.forward_clean(graph, params, blends,
+                                            keep=(enc,))[enc].reshape(bs, -1)
+                else:
+                    captured.x.copy_(blends)
+                    e = captured.replay()
+                    count("xfr.eval.graph_replays")
                 if out is None:
                     out = e.new_empty((len(steps) * bs, e.shape[1]))
                 out[i * bs:(i + 1) * bs] = e
