@@ -329,3 +329,80 @@ def test_port_imports_no_jax():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     subprocess.run([sys.executable, "-c", code], cwd=root, check=True,
                    timeout=120)
+
+
+def _senet_pair():
+    """SENet-50-256 at one block a stage (full widths) on the benchmark's
+    seeded weights, its squeeze-excite gates calibrated to spread over
+    (0, 1): (the JAX package's graph, encode tensor and parameters, the
+    port's Whitebox over the same values)."""
+    from xfr_bench import harness as H
+    from xfr_bench.reference import senet50_256 as RSE
+    from xfr_tpu.models import vggface2 as JV2
+
+    cfg = H.config("senet50_256")
+    cfg["layers"] = [1, 1, 1, 1]
+    params = H.make_weights(RSE.param_shapes(cfg), 2 ** 36 + 5, "cpu")
+    g = torch.Generator().manual_seed(11)
+    RSE.calibrate_gates(params, cfg, torch.randint(
+        0, 256, (2, 224, 224, 3), generator=g, dtype=torch.uint8),
+        cfg["se_logit_std"])
+    with pytest.MonkeyPatch.context() as m:
+        # the JAX builder's stages at one block each
+        m.setattr(JV2, "_STAGES", tuple((s[0], 1) + s[2:]
+                                        for s in JV2._STAGES))
+        jg, jshapes, jenc = JV2.build_senet50_256()
+    assert jshapes == RSE.param_shapes(cfg)
+    jp = {k: {kk: jnp.asarray(vv.numpy()) for kk, vv in v.items()}
+          for k, v in params.items()}
+    return (jg, jenc, jp), cfg["program"].program(cfg, params, "cpu")
+
+
+def test_senet_matcher_matches_jax():
+    """STRise over SENet-50-256 (``black_box="senet50_256"``: the port's
+    chunk scorer, blends preprocessed with the VGGFace2 mean) against the
+    JAX package's STRise scoring through a ``black_box_fn`` on the JAX
+    SENet (its float32 blends preprocessed as ``preprocess_vggface2_batch``
+    does, L2-normalized embeddings, ``make_bb_score_fn``'s similarity),
+    the same weights, probe, masks and seed: mask scores and map within
+    the ResNet slice's tolerances (measured on the CPU: 1.5e-7 and
+    2.5e-4)."""
+    from xfr_tpu.ebp import interpreter as JI
+    from xfr_tpu.models import vggface2 as JV2
+
+    (jg, jenc, jp), twb = _senet_pair()
+    twb.batch_size = 4  # the probe's, refs' and gallery's encodes
+
+    def jax_bb_fn(probes, gallery):
+        def embed(images):
+            x = JV2.preprocess_vggface2_batch(jnp.asarray(
+                np.stack([np.asarray(im, np.float32) for im in images])))
+            e = JI.forward_clean(jg, jp, x)[jenc].reshape(len(images), -1)
+            return e / jnp.linalg.norm(e, axis=1, keepdims=True)
+
+        pe, ge = embed(probes), embed(gallery)
+        return np.asarray(1.0 - 0.5 * jnp.linalg.norm(
+            pe[:, None] - ge[None], axis=2))
+
+    probe, gal = _images()
+    rng = np.random.RandomState(4)
+    ref = np.clip(probe.astype(int) + rng.randint(-20, 21, probe.shape), 0,
+                  255).astype(np.uint8)
+    kw = dict(probe=probe, refs=[ref], gallery=[gal, probe[::-1].copy()],
+              prior_type="uniform", num_masks=40, mask_scale=28,
+              num_mask_elements=2, mask_fill_type="blur", seed=5,
+              batch_size=16)
+    grids, shifts = _grids_shifts()
+    jst = _run_injected(JSTRise(black_box_fn=jax_bb_fn, **kw), grids,
+                        shifts, jnp.asarray)
+    st = _run_injected(
+        STRise(device="cpu", black_box="senet50_256",
+               net_dict={("senet50_256", 6): twb}, **kw),
+        grids, shifts, torch.from_numpy)
+    assert st.mask_scores.shape == (40,)
+    np.testing.assert_allclose(st.mask_scores, jst.mask_scores, rtol=0,
+                               atol=SCORE_ATOL)
+    assert np.abs(jst.mask_scores).min() > 100 * SCORE_ATOL
+    np.testing.assert_array_equal(st.mask_scores > 0, jst.mask_scores > 0)
+    np.testing.assert_allclose(st.saliency_map, np.asarray(jst.saliency_map),
+                               rtol=0, atol=1e-3)

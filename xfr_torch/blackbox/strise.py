@@ -20,7 +20,14 @@ which on the card is the hand-written Hopper kernel: the [N,H,W] masks are
 not built for scoring.  Otherwise the masks are materialized and blended
 in plain PyTorch.  The JAX package's ``lax.scan`` over chunks is a Python
 loop here; every chunk is enqueued on the device stream without a host
-sync until the drain.
+sync until the drain.  On a card each chunk's encode, and the mean-EBP
+prior's walk, replay a CUDA graph captured at first use
+(``WhiteboxNetwork.captured_encode``, ``Whitebox.captured_pooled_ebp``):
+the card's launch queue holds about one eager chunk, so eager host work
+at a map's start (the prior's walk) leaves the card idle.  The built-in
+scorer's drain reads its map's results after that map's launch alone
+(``_reading_after``), so a pipeline that launches the next map before
+draining this one keeps the card busy through the drain.
 
 The gallery montage (``plot_gallery``, ``save_gallery``) needs
 matplotlib, imported inside the methods; it draws on the host.
@@ -28,6 +35,7 @@ matplotlib, imported inside the methods; it draws on the host.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import sys
 
@@ -38,7 +46,53 @@ from xfr_torch.blackbox import masks as M
 from xfr_torch.utils.device import precision_scope, resolve_device, \
     to_device
 from xfr_torch.utils.image import center_crop
-from xfr_torch.utils.profiling import span
+from xfr_torch.utils.profiling import count, span
+
+# the built-in matchers, scored on the STRise device, by the family whose
+# batch preprocessing and channel mean their input takes
+BUILTIN_BLACK_BOXES = {"resnetv4_pytorch": "resnet101",
+                       "resnetv6_pytorch": "resnet101",
+                       "vggface2_resnet50": "vggface2",
+                       "senet50_256": "vggface2"}
+
+
+def _matcher_input(black_box):
+    """(batch preprocess, mean) of a built-in matcher: ``preprocess``
+    takes [N,H,W,3] float RGB on a device to the [N,3,H,W] input less the
+    channel mean, and ``mean(dtype, device)`` is that [3] mean, uploaded
+    once a device."""
+    if BUILTIN_BLACK_BOXES[black_box] == "vggface2":
+        from xfr_torch.models.vggface2 import mean_vggface2, \
+            preprocess_vggface2_batch
+        return preprocess_vggface2_batch, mean_vggface2
+    from xfr_torch.models.resnet101 import mean_rgb, \
+        preprocess_resnet101_batch
+    return preprocess_resnet101_batch, mean_rgb
+
+
+def _launch_end(device):
+    """An event recorded now on ``device``'s current stream (a card), else
+    None."""
+    if device.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
+@contextlib.contextmanager
+def _reading_after(event, device):
+    """Device-to-host reads in the block wait for ``event`` (the end of a
+    launch) alone, not for a later launch already queued behind it: on a
+    card they run on a side stream made to wait for the event; with no
+    event they run as they are."""
+    if event is None:
+        yield
+        return
+    side = torch.cuda.Stream(device)
+    side.wait_event(event)
+    with torch.cuda.stream(side):
+        yield
 
 
 def print_flush(s, file=sys.stdout, flush=True):
@@ -100,8 +154,8 @@ class STRise:
         self.device = resolve_device(device)
         self.priors = {"mean_ebp": self.mean_ebp_prior,
                        "uniform": self.uniform_prior}
-        self.black_boxes = {"resnetv4_pytorch": self.resnet_bb_fn,
-                            "resnetv6_pytorch": self.resnet_bb_fn}
+        self.black_boxes = dict.fromkeys(BUILTIN_BLACK_BOXES,
+                                         self.builtin_bb_fn)
         self.mask_types = {"sparse": self.generate_sparse_masks}
         self.mask_fill_types = {"gray": self.mask_fill_gray,
                                 "blur": self.mask_fill_blur}
@@ -111,7 +165,7 @@ class STRise:
         self.blur_fill_sigma_percent = blur_fill_sigma_percent
         self._net_dict = net_dict if net_dict is not None else {}
         self.mean_ebp_net = None
-        self.resnet_net = None
+        self.matcher_net = None
         # a CPU generator whatever the device: the masks are drawn on the
         # host, so one seed gives one mask set on the card and the CPU
         self._gen = torch.Generator()
@@ -194,6 +248,7 @@ class STRise:
                              .format(black_box))
         self.black_box = black_box
         self.black_box_fn = self.black_boxes[black_box]
+        self._preprocess, self._mean = _matcher_input(black_box)
 
     def _get_net(self, name, ebp_version=None):
         key = (name, ebp_version)
@@ -222,20 +277,33 @@ class STRise:
         if not self.mean_ebp_net:
             self.mean_ebp_net = self._get_net("resnetv4_pytorch")
         wb = self.mean_ebp_net
+        from xfr_torch.ebp.engine import _EncodeGraph
         from xfr_torch.models.resnet101 import preprocess_resnet101_batch
         probe = preprocess_resnet101_batch(self._tensor(self.probe)[None])
         n = wb.net.num_classes()
-        Pn = torch.full((1, n), 1.0 / n, dtype=torch.float32,
-                        device=self.device)
+
+        def uniform():
+            return torch.full((1, n), 1.0 / n, dtype=torch.float32,
+                              device=self.device)
+
         if wb.convert_saliency_uint8:
             # the uint8-quantized saliency (ebp_version != 6) keeps the
             # host PIL conversion of wb.ebp, then resizes on the device
-            P = wb.ebp(probe, Pn)
+            P = wb.ebp(probe, uniform())
             self.prior = M.resize_bilinear(self._tensor(P.astype(np.float32)),
                                            (224, 224))
             return
         # pooled MWP -> gaussian blur -> normalize -> resize, on device
-        pooled, _ = wb._ebp_pooled_fn()(wb.net.params, probe, Pn)
+        if _EncodeGraph.engages(probe.device):
+            # one replay: the walk's host work would leave the card idle
+            # between the previous map's chunks and this map's
+            walk = wb.captured_pooled_ebp(wb.net.params, probe.shape,
+                                          probe.stride())
+            walk.x.copy_(probe)
+            pooled = walk.replay()
+        else:
+            pooled, _ = wb._ebp_pooled_fn()(wb.net.params, probe,
+                                            uniform())
         P = M.gaussian_blur(pooled.squeeze().float(), 2.0)
         P = torch.clamp(P, min=0.0)
         P = P / torch.clamp(P.sum(), min=wb.eps)
@@ -326,26 +394,24 @@ class STRise:
 
     # -- step 4: scoring -----------------------------------------------------
 
-    def resnet_bb_fn(self, probes, gallery):
-        """Built-in resnet scorer for host-side inputs.  The hot
+    def builtin_bb_fn(self, probes, gallery):
+        """Built-in matcher's scorer for host-side inputs.  The hot
         masked-probe path uses the chunk scorer instead."""
-        if not self.resnet_net:
-            self.resnet_net = self._get_net(self.black_box, ebp_version=6)
-        wb = self.resnet_net
+        if not self.matcher_net:
+            self.matcher_net = self._get_net(self.black_box, ebp_version=6)
+        wb = self.matcher_net
         gal_vecs = self._embed_collection(wb, gallery)
         probe_vecs = self._embed_collection(wb, probes)
         return _l2_similarity(probe_vecs, gal_vecs)
 
     def _embed_collection(self, wb, images):
-        from xfr_torch.models.resnet101 import preprocess_resnet101_batch
         if isinstance(images, np.ndarray) and images.ndim == 4 and \
                 images.shape[-1] == 3:
-            images = preprocess_resnet101_batch(self._tensor(images))
+            images = self._preprocess(self._tensor(images))
         elif isinstance(images, (list, tuple)) and len(images) and \
                 isinstance(images[0], np.ndarray) and images[0].ndim == 3 \
                 and images[0].shape[2] == 3:
-            images = preprocess_resnet101_batch(
-                self._tensor(np.stack(images)))
+            images = self._preprocess(self._tensor(np.stack(images)))
         return wb.embeddings(images)
 
     @staticmethod
@@ -395,7 +461,6 @@ class STRise:
         came from the memo — the consumer re-normalizes), and ``fetch()``
         produces the normalized host embedding and inserts it into the
         memo (bitwise what ``_embed_collection(wb, [probe])`` returns)."""
-        from xfr_torch.models.resnet101 import preprocess_resnet101_batch
         from xfr_torch.utils.cache import memo_put
 
         arr = np.stack([np.asarray(self.probe)])
@@ -403,7 +468,7 @@ class STRise:
         if hit is not None:
             e = hit[1].reshape(1, -1)
             return self._tensor(e), (lambda: hit[1])
-        x = preprocess_resnet101_batch(self._tensor(arr))
+        x = self._preprocess(self._tensor(arr))
         bs = wb.batch_size
         if bs > 1:
             x = torch.cat([x, x.new_zeros((bs - 1,) + tuple(x.shape[1:]))])
@@ -461,8 +526,7 @@ class STRise:
         order over the padded mask count (the drain's collective).
         Without a mesh: every chunk, and the identity."""
         from xfr_torch.blackbox.fused_blend import fused_mask_blend_preprocess
-        from xfr_torch.models.resnet101 import mean_rgb, \
-            preprocess_resnet101_batch
+        from xfr_torch.ebp.engine import _EncodeGraph
         from xfr_torch.parallel import mesh as MS
 
         n, bs, mesh = self.num_masks, self.batch_size, self.mesh
@@ -484,7 +548,7 @@ class STRise:
             spans = [(c * bs, (c + 1) * bs) for c in range(lo, hi)]
 
         if kernel:
-            mean = mean_rgb(torch.float32, self.device)
+            mean = self._mean(torch.float32, self.device)
             grids = self._grids_dev.float().contiguous()
             shifts = self._shifts_dev.to(torch.int32).contiguous()
             probe, fill = probe.contiguous(), fill.contiguous()
@@ -507,13 +571,28 @@ class STRise:
                     m = torch.cat([m, m.new_zeros(
                         (i1 - i0 - m.shape[0],) + tuple(masks.shape[1:]))])
                 m = m[..., None]
-                return preprocess_resnet101_batch(m * probe + (1.0 - m) * fill)
+                return self._preprocess(m * probe + (1.0 - m) * fill)
 
+        # masked-probe rows encoded, padding included
+        count("xfr.bb.rows_scored", sum(i1 - i0 for i0, i1 in spans))
         rs, gs = [], []
+        captured = None
         with precision_scope(self.score_precision):
             for i0, i1 in spans:
-                r, g = _encode_and_score(graph, enc, params, chunk(i0, i1),
-                                         ref_e, gal_e)
+                x = chunk(i0, i1)
+                if captured is None and _EncodeGraph.engages(x.device):
+                    # one replay a chunk: the launch leaves the chunks
+                    # queued on the card and the host free for the next
+                    # map's prior and draw
+                    captured = wb.net.captured_encode(
+                        params, x.shape, x.dtype, self.score_precision,
+                        x.stride())
+                if captured is None:
+                    r, g = _encode_and_score(graph, enc, params, x, ref_e,
+                                             gal_e)
+                else:
+                    captured.x.copy_(x)
+                    r, g = _score(captured.replay(), ref_e, gal_e)
                 rs.append(r)
                 gs.append(g)
 
@@ -569,10 +648,10 @@ class STRise:
         self._fused_finish = None
 
         if builtin:
-            if not self.resnet_net:
-                self.resnet_net = self._get_net(self.black_box,
+            if not self.matcher_net:
+                self.matcher_net = self._get_net(self.black_box,
                                                 ebp_version=6)
-            wb = self.resnet_net
+            wb = self.matcher_net
             if self.mesh is not None and wb.mesh is not self.mesh:
                 wb.use_mesh(self.mesh)
             n = self.num_masks
@@ -616,9 +695,11 @@ class STRise:
                 select = functools.partial(
                     self._select_combine_fn(n), self._masks_dev,
                     pe=pe_kernel, ref_e=flat_ref, gal_e=flat_gal)
+                done = None
                 if self.mesh is None:
                     # enqueued now; under a mesh it follows the gather
                     combined = select(rs, gs)
+                    done = _launch_end(self.device)
 
                 def fused_finish():
                     if self.mesh is None:
@@ -627,18 +708,20 @@ class STRise:
                     else:
                         rs_all, gs_all = gathered()
                         cts_d, npos_d, smap_d = select(rs_all, gs_all)
-                    self.masked_probe_ref_scores = rs_all.cpu().numpy()[:n]
-                    self.masked_probe_gallery_scores = \
-                        gs_all.cpu().numpy()[:n]
-                    original_scores()
-                    self.mask_scores = cts_d.cpu().numpy()
-                    if float(npos_d) == 0:
-                        raise ValueError(
-                            "no positively-scored masks: the probe scores "
-                            "identically against refs and gallery (are "
-                            "they the same images?) — cannot form a "
-                            "saliency map")
-                    self.saliency_map = smap_d.cpu().numpy()
+                    with _reading_after(done, self.device):
+                        self.masked_probe_ref_scores = \
+                            rs_all.cpu().numpy()[:n]
+                        self.masked_probe_gallery_scores = \
+                            gs_all.cpu().numpy()[:n]
+                        original_scores()
+                        self.mask_scores = cts_d.cpu().numpy()
+                        if float(npos_d) == 0:
+                            raise ValueError(
+                                "no positively-scored masks: the probe "
+                                "scores identically against refs and "
+                                "gallery (are they the same images?) — "
+                                "cannot form a saliency map")
+                        self.saliency_map = smap_d.cpu().numpy()
 
                 self._fused_finish = fused_finish
 
@@ -859,7 +942,12 @@ def _encode_and_score(graph, enc, params, x, ref_e, gal_e):
     from xfr_torch.ebp import interpreter as I
 
     e = I.forward_clean(graph, params, x, keep=(enc,))[enc]
-    e = e.reshape(x.shape[0], -1)
+    return _score(e.reshape(x.shape[0], -1), ref_e, gal_e)
+
+
+def _score(e, ref_e, gal_e):
+    """Embeddings [N, D] (carrying the Multiply(50)), L2-normalized and
+    scored against both galleries."""
     e = e / torch.linalg.norm(e, dim=1, keepdim=True)
     ref_s = 1.0 - 0.5 * torch.linalg.norm(e[:, None, :] - ref_e[None], dim=2)
     gal_s = 1.0 - 0.5 * torch.linalg.norm(e[:, None, :] - gal_e[None], dim=2)

@@ -5,7 +5,8 @@ eval/generate_inpaintinggame_bb_saliency_maps_multigpu.py).
     python -m xfr_torch.cli.generate_bb_saliency --data-dir DATA \\
         --saliency-dir SMAPS [options]
 
-The built-in matchers score masked probes with STRise's on-device scorer
+The built-in matchers (the ResNet-101s and the VGGFace2 ResNet-50-128
+and SENet-50-256) score masked probes with STRise's on-device scorer
 through one BBPipeline across all jobs; any other net scores through its
 embeddings and the L2 similarity on the host (reference :73-101).  The
 nets are built on the card and STRise runs where its net lives; without
@@ -25,12 +26,13 @@ import sys
 import numpy as np
 
 import xfr_torch
+from xfr_torch.blackbox.strise import BUILTIN_BLACK_BOXES
 from xfr_torch.cli.generate_wb_saliency import (add_common_args,
                                                 build_job_table, order_jobs,
                                                 resolve_mesh, resolve_shards,
                                                 shard_jobs)
 
-BUILTIN = ("resnetv4_pytorch", "resnetv6_pytorch")
+BUILTIN = tuple(BUILTIN_BLACK_BOXES)
 
 
 def make_bb_score_fn(wb):
@@ -99,7 +101,8 @@ def main(argv=None):
                 # None): alias the resident net so the default prior
                 # doesn't build a SECOND full ResNet-101 per process.
                 # (Other matchers keep the reference semantics: the prior
-                # net is specifically resnetv4, so it must be built.)
+                # net is specifically resnetv4, so STRise builds it into
+                # net_dict beside the matcher, once a process.)
                 net_dict[("resnetv4_pytorch", None)] = wbnets[job["net"]]
         wb = wbnets[job["net"]]
         # builtin matchers get the fused on-device scorer; others keep the

@@ -27,7 +27,9 @@ program runs with TF32 off (``precision_scope("high")``, the TPU's
 bf16_3x); ``encode`` and the blend+encode programs allow TF32.  On a
 card, the encode of a monotone blend+encode step is captured once as a
 CUDA graph and replayed for every later step (``_EncodeGraph``), so a
-step costs the host a few launches instead of one a graph node.
+step costs the host a few launches instead of one a graph node; STRise's
+chunk encodes and its mean-EBP prior's walk replay graphs from the same
+cache (``WhiteboxNetwork.captured``).
 
 The device mesh (``use_mesh``): the JAX package places one global batch
 over a mesh from one process.  Here every rank of a ``torch.distributed``
@@ -135,7 +137,11 @@ class _EncodeGraph:
     so a caller copies it out on the same stream before handing it on.
     The graph reads the parameters at the addresses they had when it was
     captured.  Capturing waits once for the card (``torch.cuda.graph``
-    synchronizes before it begins); a replay waits for nothing."""
+    synchronizes before it begins); a replay waits for nothing.  A replay
+    counts the squeeze-excite gate multiplies it applies (``gates``, as
+    ``interpreter.forward_clean`` counts an eager forward's)."""
+
+    gates = 0
 
     @staticmethod
     def engages(device):
@@ -156,6 +162,8 @@ class _EncodeGraph:
                 self.y = encode(x)
 
     def replay(self):
+        if self.gates:
+            count("xfr.enc.se_gates", self.gates)
         self.graph.replay()
         return self.y
 
@@ -214,7 +222,7 @@ class WhiteboxNetwork(torch.nn.Module):
         self.name = name
         self._orig_classifier = dict(params).get(classifier_pname)
         self._orig_num_classes = num_classes
-        # captured step encodes (captured_encode), keyed by what they baked
+        # captured encodes and walks (captured), keyed by what they baked
         self.encode_graphs = {}
 
     @property
@@ -274,30 +282,49 @@ class WhiteboxNetwork(torch.nn.Module):
         out = self.graph.output_id
         return I.forward_clean(self.graph, self.params, x, keep=(out,))[out]
 
-    def captured_encode(self, params, shape, dtype):
+    def captured_encode(self, params, shape, dtype, precision=None,
+                        stride=None):
         """The encode of a [bs, C, H, W] batch of ``dtype`` under
-        ``params``, TF32 allowed, as an ``_EncodeGraph``: captured on first
-        use, then kept, keyed by the input's shape and dtype, the device,
-        the precision scope and the addresses of the parameter tensors the
-        encode reads.  A key with other parameter addresses (the
-        parameters were replaced) drops the graphs of the old ones."""
-        precision = None
+        ``params`` in the precision scope ``precision`` (None: TF32
+        allowed), as ``captured``'s graph of the tag "encode", keyed by
+        the addresses of the parameter tensors the encode reads."""
         graph, enc = self.graph, self.encode_tensor
         ids = tuple(v.data_ptr() for pn in self._encode_pnames()
                     for v in params.get(pn, {}).values())
-        key = (tuple(shape), dtype, self.device, precision, ids)
+
+        def encode(x):
+            with precision_scope(precision):
+                e = I.forward_clean(graph, params, x, keep=(enc,))[enc]
+            return e.reshape(x.shape[0], -1)
+
+        got = self.captured("encode", encode, ids, shape, dtype, precision,
+                            stride)
+        got.gates = graph.n_gates * shape[0]
+        return got
+
+    def captured(self, tag, fn, ids, shape, dtype, precision=None,
+                 stride=None):
+        """``fn`` of a static input of ``shape``, ``dtype`` and the strides
+        ``stride`` (default contiguous; a batch of that layout copies in
+        as a plain memcpy, and the graph runs the kernels ``fn`` runs on
+        it), as an ``_EncodeGraph``: captured on first use, then kept in
+        ``encode_graphs``, keyed by the input's shape, dtype and strides,
+        the device, the precision scope ``fn`` runs in, ``ids`` (the
+        addresses of the parameter tensors it reads) and ``tag`` (what
+        ``fn`` computes).  A key of ``tag`` with other ``ids`` (the
+        parameters were replaced) drops that tag's graphs of the old
+        ones."""
+        stride = None if stride is None else tuple(stride)
+        key = (tuple(shape), dtype, self.device, precision, ids, stride, tag)
         got = self.encode_graphs.get(key)
         if got is None:
-            for k in [k for k in self.encode_graphs if k[-1] != ids]:
+            for k in [k for k in self.encode_graphs
+                      if k[6] == tag and k[4] != ids]:
                 del self.encode_graphs[k]
-
-            def encode(x):
-                with precision_scope(precision):
-                    e = I.forward_clean(graph, params, x, keep=(enc,))[enc]
-                return e.reshape(x.shape[0], -1)
-
-            got = self.encode_graphs[key] = _EncodeGraph(
-                encode, torch.zeros(shape, dtype=dtype, device=self.device))
+            x = (torch.zeros(shape, dtype=dtype, device=self.device)
+                 if stride is None else torch.empty_strided(
+                     shape, stride, dtype=dtype, device=self.device).zero_())
+            got = self.encode_graphs[key] = _EncodeGraph(fn, x)
             count("xfr.eval.graph_captures")
         return got
 
@@ -313,7 +340,7 @@ class WhiteboxNetwork(torch.nn.Module):
         return names
 
     def clear(self):
-        """Drops the captured step encodes (``captured_encode``); the
+        """Drops the captured graphs (``captured``); the
         reference clears its hooks' state here, of which the functional
         interpreter keeps none."""
         self.encode_graphs.clear()
@@ -537,6 +564,25 @@ class Whitebox:
             return P.sum(dim=1), P
 
         return fn
+
+    def captured_pooled_ebp(self, params, shape, stride):
+        """``_ebp_pooled_fn``'s channel-pooled MWP from a uniform prior over
+        the classes, of a [1, C, H, W] float32 input with strides
+        ``stride``, as the net's ``captured`` graph (copy the input into
+        its ``x``, then ``replay()``), keyed by the walk's subtree mode,
+        bias and eps and the addresses of every parameter tensor."""
+        ids = tuple(v.data_ptr() for p in params.values() for v in p.values())
+        walk, n = self._ebp_pooled_fn(), self.net.num_classes()
+
+        def pooled(x):
+            Pn = torch.full((1, n), 1.0 / n, dtype=torch.float32,
+                            device=x.device)
+            return walk(params, x, Pn)[0]
+
+        tag = ("pooled_ebp", self._ebp_subtree_mode, self._ebp_with_bias,
+               self.eps)
+        return self.net.captured(tag, pooled, ids, shape, torch.float32,
+                                 "high", stride)
 
     def _contrastive_pair_fn(self, kinds):
         """(params, x, Pns [2,B,K], percentile) -> list of [B,H,W] maps,

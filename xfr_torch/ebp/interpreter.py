@@ -39,6 +39,7 @@ import torch
 
 from xfr_torch import ops as O
 from xfr_torch.graph import GraphDef
+from xfr_torch.utils.profiling import count
 
 VALID_SUBTREE_MODES = ("affineonly", "affineonly_with_prior", "norelu", "all")
 
@@ -81,7 +82,11 @@ def forward_values(graph: GraphDef, params, x,
 @torch.no_grad()
 def forward_clean(graph: GraphDef, params, x, keep: Optional[Sequence[int]]
                   = None):
-    """Pass 1: ``forward_values`` without autograd."""
+    """Pass 1: ``forward_values`` without autograd.  While a profiler
+    records, counts the SE gate multiplies of the forward
+    (``xfr.enc.se_gates``: one a row a gated block)."""
+    if graph.n_gates:
+        count("xfr.enc.se_gates", graph.n_gates * x.shape[0])
     return forward_values(graph, params, x, keep)
 
 

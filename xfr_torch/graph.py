@@ -143,6 +143,9 @@ class GraphDef:
         # that keep only some tensors free the others after it)
         self.last_use: Dict[int, int] = {t: max(c)
                                          for t, c in consumers.items()}
+        # the squeeze-excite gates' broadcast multiplies (SENet's ``mul``
+        # nodes, the only ones), applied once a row by a whole forward
+        self.n_gates = sum(node.op == "mul" for node in self.nodes)
 
         # Static backward event schedule (see module docstring).
         events: List[Event] = []

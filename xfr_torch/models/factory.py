@@ -5,8 +5,9 @@ Builds the graph, loads weights, wraps in WhiteboxNetwork/Whitebox with
 the per-net default subtree mode and the published match-threshold /
 Platt-scaling calibration constants.  Nets: STR-Janus ResNet-101
 ("resnetv4_pytorch", "resnetv6_pytorch"), VGGFace2 ResNet-50-128
-("vggface2_resnet50"), VGGFace2 SENet-50-256 ("senet50_256", encode
-only: its EBP raises on the Sigmoid) and LightCNN-29 v2 ("lightcnn").
+("vggface2_resnet50"), VGGFace2 SENet-50-256 ("senet50_256", encode and
+STRise's on-card scorer only: its EBP raises on the Sigmoid) and
+LightCNN-29 v2 ("lightcnn").
 
 The original torch checkpoints are not vendored; when a checkpoint path
 is missing the factory falls back to deterministic random weights seeded
@@ -107,8 +108,8 @@ def create_wbnet(net_name, device="cuda", ebp_version=None,
         wb = Whitebox(net, ebp_version=ebp_version,
                       ebp_subtree_mode=ebp_subtree_mode or "norelu")
         if not senet:
-            # SENet serves encode and embeddings only (its EBP raises on
-            # the Sigmoid) and carries no calibration
+            # SENet serves encode, embeddings and STRise's scorer only
+            # (its EBP raises on the Sigmoid) and carries no calibration
             wb.match_threshold = VF2.VGGFACE2_MATCH_THRESHOLD
             wb.platts_scaling = VF2.VGGFACE2_PLATTS_SCALING
         return wb

@@ -6,7 +6,9 @@ Flat MMdnn-converted nets: bias-free convs + BN, inplace ReLU modules,
 head and a 1x1 feat_extract conv producing the embedding.  SENet adds
 squeeze-excite branches (global pool -> 1x1 down -> relu -> 1x1 up ->
 Sigmoid -> broadcast scale); the Sigmoid makes SENet unsupported for EBP
-(the walk raises on it), but the encode path works.
+(the walk raises on it), but the encode path works, and STRise scores its
+masked probes with it on the card (a blackbox map is the only one SENet
+gets).
 
 The 2-class triplet classifier lives *outside* the hooked net, so the
 final linear here is an unhooked node named 'fc1'.
@@ -14,10 +16,13 @@ final linear here is an unhooked node named 'fc1'.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from xfr_torch.graph import GraphBuilder
+from xfr_torch.utils.device import to_device
 
 MEAN_BGRISH = np.array([131.0912, 103.8827, 91.4953])  # RGB order
 
@@ -25,11 +30,14 @@ MEAN_BGRISH = np.array([131.0912, 103.8827, 91.4953])  # RGB order
 VGGFACE2_MATCH_THRESHOLD = 0.896200
 VGGFACE2_PLATTS_SCALING = 15.921608
 
-_STAGES = (("conv2", 3, 64, 256, 1), ("conv3", 4, 128, 512, 2),
-           ("conv4", 6, 256, 1024, 2), ("conv5", 3, 512, 2048, 2))
+# (stage, planes, channels out, stride); the published blocks a stage are
+# (3, 4, 6, 3)
+_STAGES = (("conv2", 64, 256, 1), ("conv3", 128, 512, 2),
+           ("conv4", 256, 1024, 2), ("conv5", 512, 2048, 2))
 
 
-def _build_vggface2(name, embed_dim, num_classes, se_ratio=None):
+def _build_vggface2(name, embed_dim, num_classes, se_ratio=None,
+                    layers=(3, 4, 6, 3)):
     g = GraphBuilder(name)
     x = g.conv2d(0, 3, 64, 7, stride=2, padding=3, bias=False,
                  name="conv1_7x7_s2")
@@ -38,7 +46,7 @@ def _build_vggface2(name, embed_dim, num_classes, se_ratio=None):
     x = g.maxpool2d(x, 3, stride=2, ceil_mode=True)
 
     cin = 64
-    for stage, nblocks, planes, cout, stride in _STAGES:
+    for (stage, planes, cout, stride), nblocks in zip(_STAGES, layers):
         for b in range(1, nblocks + 1):
             pfx = f"{stage}_{b}"
             s = stride if b == 1 else 1
@@ -87,14 +95,17 @@ def _build_vggface2(name, embed_dim, num_classes, se_ratio=None):
     return graph, g.param_shapes, enc
 
 
-def build_resnet50_128(num_classes=2):
-    """VGGFace2 ResNet-50 with 128-d embedding."""
-    return _build_vggface2("resnet50_128", 128, num_classes)
+def build_resnet50_128(num_classes=2, layers=(3, 4, 6, 3)):
+    """VGGFace2 ResNet-50 with 128-d embedding; ``layers``: blocks a
+    stage (fewer for small tests)."""
+    return _build_vggface2("resnet50_128", 128, num_classes, layers=layers)
 
 
-def build_senet50_256(num_classes=2):
-    """VGGFace2 SENet-50 with 256-d embedding (EBP-unsupported: Sigmoid)."""
-    return _build_vggface2("senet50_256", 256, num_classes, se_ratio=16)
+def build_senet50_256(num_classes=2, layers=(3, 4, 6, 3)):
+    """VGGFace2 SENet-50 with 256-d embedding (EBP-unsupported: Sigmoid);
+    ``layers``: blocks a stage (fewer for small tests)."""
+    return _build_vggface2("senet50_256", 256, num_classes, se_ratio=16,
+                           layers=layers)
 
 
 def preprocess_vggface2(img, device="cuda"):
@@ -122,9 +133,15 @@ def preprocess_vggface2(img, device="cuda"):
                            device=device)
 
 
+@functools.lru_cache(maxsize=None)
+def mean_vggface2(dtype, device):
+    """MEAN_BGRISH as a [3] tensor of ``dtype`` on ``device``, uploaded
+    once per (dtype, device) and without waiting for the card."""
+    return to_device(torch.as_tensor(MEAN_BGRISH, dtype=dtype), device)
+
+
 def preprocess_vggface2_batch(images):
     """Batched preprocessing on the images' device: [N,H,W,3] RGB [0,255]
     tensor -> [N,3,H,W] mean-subtracted."""
-    mean = torch.as_tensor(MEAN_BGRISH, dtype=images.dtype,
-                           device=images.device)
-    return (images - mean).permute(0, 3, 1, 2)
+    return (images - mean_vggface2(images.dtype, images.device)).permute(
+        0, 3, 1, 2)
