@@ -13,6 +13,12 @@ c.phase_device(); c.phase_build(); c.phase_lightcnn()"``:
   kernel     each kernel against its plain PyTorch version at the main
              path's shapes (N=64 masks, 19x19 grids, 224x224, scale 12):
              error, times (CUDA events, median), bound
+  epilogue   the fused conv-bias/BatchNorm/gate/add/ReLU epilogue: each
+             distinct chain of one 64-row full-depth ResNet-101 encode (NCHW
+             and channels_last) and SENet-50-256 encode (channels_last)
+             against its plain version bit for bit, its time beside its
+             byte bound and the plain version's time, summed an encode;
+             and the whole encode, captured, op by op against planned
   precision  precision_scope: full float32 under "high", TF32 under None;
              the host CPU's float32 conv and matmul against float64, timed,
              and its oneDNN settings
@@ -22,7 +28,9 @@ c.phase_device(); c.phase_build(); c.phase_lightcnn()"``:
              masks, mean-EBP prior, blur fill 4%, scale 12, 2 elements,
              the fused-blend kernel, score_precision "high"; one warm-up
              map of 640 masks, then 1 timed map, launched with every host
-             sync refused; the kernel must launch 102 times a map
+             sync refused; the kernel must launch 102 times a map, and
+             the fused epilogue run 103 encodes' chains a map (102
+             chunk replays and the probe's encode)
   branches   the same seed and prior on the materialized-mask branch:
              the same masks, agreeing scores and maps
   uniform_draws  STRise's uniform-prior masks of seeds 0 and 1 on the card
@@ -332,9 +340,11 @@ def phase_build():
     from xfr_torch import kernels
 
     t0 = time.time()
-    kernels.load("fused_blend")
+    names = ("fused_blend", "fused_epilogue")
+    for name in names:
+        kernels.load(name)
     emit("build", seconds=time.time() - t0,
-         libraries=[kernels.library_path("fused_blend")])
+         libraries=[kernels.library_path(name) for name in names])
 
 
 def fused_blend_inputs(seed=0, n=CHUNK):
@@ -424,6 +434,165 @@ def kernel_at(n):
                 lambda: FB.fused_mask_blend_preprocess_reference(
                     *args, mask_scale=SCALE)),
             "tol": {"rtol": 1e-4, "atol": 1e-3}}
+
+
+def epilogue_calls(net, x):
+    """The fused epilogues of one keep-limited encode of ``x`` on ``net``
+    at "high": {(shape, strides, stages, residual strides): [count, x,
+    kwargs of the first such chain]}.  Each chain's inputs come from an
+    op-by-op forward that keeps every tensor, a biased convolution's
+    output taken again without its bias, as the planned forward takes
+    it."""
+    import torch
+    from xfr_torch import epilogue as EP
+    from xfr_torch import ops as O
+    from xfr_torch.ebp import interpreter as I
+    from xfr_torch.utils.device import precision_scope
+
+    graph, params = net.graph, net.params
+    plan = I.clean_plan(graph, params, (net.encode_tensor,), x)
+    calls = {}
+    with precision_scope("high"), torch.no_grad():
+        values = I.forward_values(graph, params, x)
+        for kind, chain in plan.steps:
+            if kind != "chain":
+                continue
+            vals = values
+            if chain.conv is not None:
+                node = graph.nodes[chain.conv]
+                vals = list(values)
+                vals[chain.x] = O.apply_op(
+                    node.op, {"w": params[node.pname]["w"]},
+                    tuple(values[i] for i in node.ins), node.attrs_dict)
+            cx, kw = EP.chain_args(chain, graph, params, vals)
+            stages = tuple(k for k in ("bias", "bn", "gate", "residual")
+                           if k in kw) + (("relu",) if kw["relu"] else ())
+            r = kw.get("residual")
+            key = (tuple(cx.shape), cx.stride(), stages,
+                   None if r is None else r.stride())
+            calls.setdefault(key, [0, cx, kw])[0] += 1
+    return calls
+
+
+def device_kernels(fn):
+    """The kernels the card runs for ``fn()`` (a graph replay's included),
+    by torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset")))
+
+
+def epilogue_bytes(x, kw):
+    """Bytes one chain needs: x, the residual and the output once, the
+    gate and the per-channel vectors once."""
+    n = 2 * x.numel()
+    if kw.get("residual") is not None:
+        n += x.numel()
+    if kw.get("gate") is not None:
+        n += kw["gate"].numel()
+    n += x.shape[1] * ((kw.get("bias") is not None)
+                       + 4 * (kw.get("bn") is not None))
+    return 4 * n
+
+
+def epilogue_encode(name, nhwc, rows=CHUNK):
+    """One net's 64-row encode: every distinct chain checked and timed,
+    and the whole encode captured op by op and planned, timed."""
+    import torch
+    from xfr_torch import epilogue as EP
+    from xfr_torch.ebp import engine as E
+    from xfr_torch.ebp import interpreter as I
+    from xfr_torch.models import create_wbnet
+    from xfr_torch.utils.device import precision_scope
+
+    net = create_wbnet(name, device="cuda").net
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((rows, 3, SIZE, SIZE), generator=gen,
+                    device="cuda") * 50
+    if nhwc:
+        x = x.contiguous(memory_format=torch.channels_last)
+    chains, total = [], {"count": 0, "ms": 0.0, "plain_ms": 0.0,
+                         "bytes": 0}
+    for (shape, stride, stages, _), (count, cx, kw) in epilogue_calls(
+            net, x).items():
+        got = EP.fused_epilogue(cx, **kw)
+        want = EP.fused_epilogue_reference(cx, **kw)
+        same = bool(torch.equal(got.contiguous().view(torch.int32),
+                                want.contiguous().view(torch.int32))
+                    and got.stride() == want.stride())
+        if not same:
+            raise AssertionError(f"epilogue {shape} {stages} differs from "
+                                 "its plain version")
+        ms = cuda_ms(lambda: EP.fused_epilogue(cx, **kw), reps=7, inner=5)
+        plain = cuda_ms(lambda: EP.fused_epilogue_reference(cx, **kw),
+                        reps=7, inner=5)
+        nbytes = epilogue_bytes(cx, kw)
+        chains.append({"shape": list(shape), "stages": list(stages),
+                       "count": count, "ms": ms, "plain_ms": plain,
+                       "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+                       "roofline_pct": 100 * nbytes / HBM_BYTES_PER_S
+                       / (ms / 1e3)})
+        total["count"] += count
+        total["ms"] += count * ms
+        total["plain_ms"] += count * plain
+        total["bytes"] += count * nbytes
+    total["bound_ms"] = 1e3 * total["bytes"] / HBM_BYTES_PER_S
+    total["roofline_pct"] = 100 * total["bound_ms"] / total["ms"]
+
+    enc = net.encode_tensor
+
+    def op_by_op(x):
+        with precision_scope("high"):
+            return I.forward_values(net.graph, net.params, x,
+                                    keep=(enc,))[enc]
+
+    def planned(x):
+        with precision_scope("high"):
+            return I.forward_clean(net.graph, net.params, x,
+                                   keep=(enc,))[enc]
+
+    encode = {}
+    for form, fn in (("op_by_op", op_by_op), ("planned", planned)):
+        g = E._EncodeGraph(fn, x.clone(memory_format=torch.preserve_format))
+        encode[form] = {"ms": cuda_ms(g.replay, reps=7, inner=3),
+                        "kernels": device_kernels(g.replay),
+                        "out": g.replay().clone()}
+    same = repeat_diff(encode["op_by_op"].pop("out"),
+                       encode["planned"].pop("out"))
+    if same != 0.0:
+        raise AssertionError(f"{name}: the planned encode differs from the "
+                             f"op-by-op encode by {same}")
+    return {"net": name, "layout": "nhwc" if nhwc else "nchw", "rows": rows,
+            "chains": total["count"], "per_encode": total,
+            "encode_ms": {k: v["ms"] for k, v in encode.items()},
+            "encode_kernels": {k: v["kernels"] for k, v in encode.items()},
+            "largest": sorted(chains, key=lambda c: -c["count"] * c["ms"])[:6]}
+
+
+def phase_epilogue():
+    """The fused epilogue on the main path's encodes (see the module
+    docstring); returns its kernel-table record."""
+    runs = [epilogue_encode("resnetv6_pytorch", nhwc=False),
+            epilogue_encode("resnetv6_pytorch", nhwc=True),
+            epilogue_encode("senet50_256", nhwc=True)]
+    for r in runs:
+        emit("epilogue", **r)
+    r101 = runs[0]["per_encode"]
+    rec = {"name": "fused_epilogue", "route": "cuda",
+           "source": "xfr_torch/csrc/fused_epilogue.cu",
+           "replaces": "none: XLA's fusion in xfr_tpu",
+           "launches": None,  # a map's, as main_path counts them
+           "ms": r101["ms"], "plain_ms": r101["plain_ms"],
+           "bound_ms": r101["bound_ms"], "bound_by": "bytes",
+           "library_ms": None}
+    return rec
 
 
 def phase_precision():
@@ -572,7 +741,9 @@ def main_path():
     import functools
 
     import torch
+    from xfr_torch import epilogue as EP
     from xfr_torch.blackbox import fused_blend as FB
+    from xfr_torch.ebp import interpreter as I
 
     t0 = time.time()
     wb, net_dict = main_path_net()
@@ -585,13 +756,22 @@ def main_path():
     check_map(make(0, num_masks=10 * CHUNK, **fused).launch_evaluate()())
     torch.cuda.synchronize()
     per_map = -(-N_MASKS // CHUNK)
+    # the fused epilogues of one encode: each chunk's captured encode
+    # replays them, and the probe's own encode (64 rows, eager) runs them
+    enc = wb.net.encode_tensor
+    chains = sum(kind == "chain" for kind, _ in I.clean_plan(
+        wb.net.graph, wb.net.params, (enc,),
+        torch.empty(0, device="cuda")).steps)
+    ep_per_map = (per_map + 1) * chains
 
     # --- the main path: counts at 0, the timed maps, counts read after ---
     torch.cuda.reset_peak_memory_stats()
     FB.fused_mask_blend_preprocess.launches = 0
-    times, deltas, kept = [], [], None
+    EP.fused_epilogue.launches = 0
+    times, deltas, ep_deltas, kept = [], [], [], None
     for seed in MAIN_SEEDS:
         c0 = FB.fused_mask_blend_preprocess.launches
+        e0 = EP.fused_epilogue.launches
         t0 = time.time()
         st = make(seed, **fused)
         with host_syncs_refused(True):
@@ -600,6 +780,7 @@ def main_path():
         torch.cuda.synchronize()
         times.append(time.time() - t0)
         deltas.append(FB.fused_mask_blend_preprocess.launches - c0)
+        ep_deltas.append(EP.fused_epilogue.launches - e0)
         check_map(smap)
         if kept is None:
             kept = st
@@ -608,12 +789,16 @@ def main_path():
     emit("main", maps=len(MAIN_SEEDS), map_s=times,
          maps_per_s=len(MAIN_SEEDS) / sum(times),
          launches=launches, launches_per_map=deltas, expected=per_map,
-         peak_mem_bytes=peak, score_precision="high",
-         launch_with_host_syncs_refused=True)
+         epilogue_launches_per_map=ep_deltas,
+         epilogue_expected=ep_per_map, peak_mem_bytes=peak,
+         score_precision="high", launch_with_host_syncs_refused=True)
     if deltas != [per_map] * len(MAIN_SEEDS):
         raise AssertionError(f"fused_blend launched {deltas} times per "
                              f"map, expected {per_map}")
-    return wb, make, kept, launches, times[0]
+    if ep_deltas != [ep_per_map] * len(MAIN_SEEDS):
+        raise AssertionError(f"fused_epilogue ran {ep_deltas} times per "
+                             f"map, expected {ep_per_map}")
+    return wb, make, kept, launches, times[0], ep_deltas[0]
 
 
 def phase_branches(make, st_k):
@@ -3606,9 +3791,10 @@ def main():
     card = phase_device()
     phase_build()
     k1 = phase_kernel()
+    epilogue = phase_epilogue()
     phase_precision()
     phase_prior()
-    wb, make, st_k, launches, main_s = main_path()
+    wb, make, st_k, launches, main_s, epilogue["launches"] = main_path()
     phase_branches(make, st_k)
     phase_tf32(make, st_k)
     phase_breakdown(wb, make, k1["ms"], st_k)
@@ -3638,7 +3824,7 @@ def main():
     emit("done", seconds=time.time() - t_start)
     # as nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
     print(f"{card['name']}, {card['power_limit']}", flush=True)
-    print(json.dumps({"kernels": [k1]}), flush=True)
+    print(json.dumps({"kernels": [k1, epilogue]}), flush=True)
     result = {"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}

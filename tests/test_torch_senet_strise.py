@@ -262,21 +262,32 @@ def test_gates_and_scored_rows_are_counted(nets):
     gated block: with the probe's embedding in the memo, exactly the
     scored rows' (32 masks in chunks of 16), else also the probe encode's
     padded batch; a ResNet map scores rows and counts no gate; with no
-    profiler nothing is counted."""
-    n_gates = nets.wb.net.graph.n_gates
-    assert n_gates == 4
+    profiler nothing is counted.  Each encode counts its BatchNorm rows,
+    all in a fused epilogue, and the prior's one-row walk on the proxy
+    its own, unfused."""
+    n_gates, bs = nets.wb.net.graph.n_gates, nets.wb.batch_size
+    n_bn, p_bn = nets.wb.net.graph.n_bn, nets.proxy.net.graph.n_bn
+    assert (n_gates, n_bn, p_bn) == (4, 17, 13)
+
+    def bn(rows, n=n_bn):
+        return {"xfr.enc.bn_rows": n * rows + p_bn,
+                "xfr.enc.bn_rows_fused": n * rows}
+
     # a finished map puts the probe's embedding in the memo; the counts
     # are the launch's
     _strise(nets).launch_evaluate()()
     warm = _counted(lambda: _strise(nets).launch_evaluate())
     assert warm == {"xfr.bb.rows_scored": 32,
-                    "xfr.enc.se_gates": n_gates * 32}
+                    "xfr.enc.se_gates": n_gates * 32, **bn(32)}
     cold = _counted(lambda: _strise(nets, seed=3).launch_evaluate())
     assert cold == {"xfr.bb.rows_scored": 32,
-                    "xfr.enc.se_gates": n_gates * (32 + nets.wb.batch_size)}
+                    "xfr.enc.se_gates": n_gates * (32 + bs),
+                    **bn(32 + bs)}
+    # the proxy as the black box also encodes the probe, the ref and the
+    # gallery, a padded batch each
     resnet = _counted(lambda: _strise(
         nets, black_box="resnetv4_pytorch").launch_evaluate())
-    assert resnet == {"xfr.bb.rows_scored": 32}
+    assert resnet == {"xfr.bb.rows_scored": 32, **bn(32 + 3 * bs, p_bn)}
     before = profiling.counters()
     _strise(nets, seed=5).launch_evaluate()
     assert profiling.counters() == before

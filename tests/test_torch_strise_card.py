@@ -16,8 +16,10 @@ file imports neither JAX nor the JAX package:
     python -m pytest tests/test_torch_strise_card.py --noconftest -q
 """
 
+import gc
 import time
 import types
+import weakref
 
 import numpy as np
 import pytest
@@ -125,6 +127,25 @@ def test_cpu_captures_nothing():
     assert np.isfinite(finish()).all()
     assert nets[("senet50_256", 6)].net.encode_graphs == {}
     assert nets[("resnetv4_pytorch", None)].net.encode_graphs == {}
+
+
+def test_a_finished_map_is_freed_with_its_last_reference():
+    """A drained STRise holds no reference cycle: with Python's cycle
+    collector off, dropping the (STRise, finish) pair frees it and its
+    masks at once, so a run of maps holds only the maps in flight."""
+    nets = _nets("cpu")
+    gc.collect()
+    gc.disable()
+    try:
+        st, finish = _launch(nets, "cpu", num_masks=64)
+        finish()
+        gone = [weakref.ref(st)] + [weakref.ref(v) for v in vars(st).values()
+                                    if isinstance(v, torch.Tensor)]
+        assert len(gone) > 1
+        del st, finish
+        assert [r() for r in gone] == [None] * len(gone)
+    finally:
+        gc.enable()
 
 
 class _EagerGraph:

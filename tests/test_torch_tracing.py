@@ -155,9 +155,15 @@ def test_eval_spans_nest_and_rows_are_counted(wb):
     # T = 101 rows a map in steps of 32: 4 steps, 128 rows, 27 of them pad
     assert wb.blend_batch == 32
     maps = 3  # the batch's two, then the single-map launch
+    # every encode counts its BatchNorm rows (the toy net has one), all
+    # in a fused epilogue: the steps' rows and the two embeddings' padded
+    # batches
+    bn = wb.net.graph.n_bn * (128 * maps + 2 * wb.batch_size)
+    assert (wb.net.graph.n_bn, wb.batch_size) == (1, 32)
     assert got == {"xfr.eval.steps": 4 * maps,
                    "xfr.eval.rows_encoded": 128 * maps,
-                   "xfr.eval.rows_needed": 101 * maps}
+                   "xfr.eval.rows_needed": 101 * maps,
+                   "xfr.enc.bn_rows": bn, "xfr.enc.bn_rows_fused": bn}
     assert spans["xfr.eval.plane"] == [[]] * 3
     assert spans["xfr.eval.encode"] == [[]] * 2
     assert spans["xfr.eval.blend"] == [["xfr.eval.encode"]] * 4 * maps

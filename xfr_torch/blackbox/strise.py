@@ -152,16 +152,6 @@ class STRise:
         if device is None:
             device = "cuda" if use_gpu else "cpu"
         self.device = resolve_device(device)
-        self.priors = {"mean_ebp": self.mean_ebp_prior,
-                       "uniform": self.uniform_prior}
-        self.black_boxes = dict.fromkeys(BUILTIN_BLACK_BOXES,
-                                         self.builtin_bb_fn)
-        self.mask_types = {"sparse": self.generate_sparse_masks}
-        self.mask_fill_types = {"gray": self.mask_fill_gray,
-                                "blur": self.mask_fill_blur}
-        self.triplet_scoring_fns = {
-            "cts": self.contrastive_triplet_similarity}
-
         self.blur_fill_sigma_percent = blur_fill_sigma_percent
         self._net_dict = net_dict if net_dict is not None else {}
         self.mean_ebp_net = None
@@ -206,7 +196,7 @@ class STRise:
             self.set_black_box(black_box)
         elif black_box_fn:
             self.black_box = None
-            self.black_box_fn = black_box_fn
+            self._black_box_fn = black_box_fn
         else:
             raise ValueError("Black box name or function must be specified")
 
@@ -214,13 +204,11 @@ class STRise:
             raise ValueError(
                 'Specified mask type "{}" is not supported'.format(mask_type))
         self.mask_type = mask_type
-        self.generate_masks = self.mask_types[mask_type]
 
         if mask_fill_type not in self.mask_fill_types:
             raise ValueError('Specified mask fill type "{}" is not '
                              "supported".format(mask_fill_type))
         self.mask_fill_type = mask_fill_type
-        self.apply_masks = self.mask_fill_types[mask_fill_type]
 
         self.num_mask_elements = num_mask_elements
         self.num_masks = num_masks
@@ -230,7 +218,51 @@ class STRise:
             raise ValueError('Specified triplet score type "{}" is not '
                              "supported.".format(triplet_score_type))
         self.triplet_score_type = triplet_score_type
-        self.triplet_scoring_fn = self.triplet_scoring_fns[triplet_score_type]
+
+    # -- the option tables --------------------------------------------------
+    # Built at each use, so that a STRise holds no bound method of its own:
+    # a finished map (its masks on the device among it) is freed when its
+    # last reference goes, not at Python's next cycle collection.
+
+    @property
+    def priors(self):
+        return {"mean_ebp": self.mean_ebp_prior,
+                "uniform": self.uniform_prior}
+
+    @property
+    def black_boxes(self):
+        return dict.fromkeys(BUILTIN_BLACK_BOXES, self.builtin_bb_fn)
+
+    @property
+    def mask_types(self):
+        return {"sparse": self.generate_sparse_masks}
+
+    @property
+    def mask_fill_types(self):
+        return {"gray": self.mask_fill_gray, "blur": self.mask_fill_blur}
+
+    @property
+    def triplet_scoring_fns(self):
+        return {"cts": self.contrastive_triplet_similarity}
+
+    @property
+    def generate_masks(self):
+        return self.mask_types[self.mask_type]
+
+    @property
+    def apply_masks(self):
+        return self.mask_fill_types[self.mask_fill_type]
+
+    @property
+    def triplet_scoring_fn(self):
+        return self.triplet_scoring_fns[self.triplet_score_type]
+
+    @property
+    def black_box_fn(self):
+        """The named black box's scorer, or the ``black_box_fn`` given."""
+        if self._black_box_fn is None:
+            return self.black_boxes[self.black_box]
+        return self._black_box_fn
 
     # -- configuration ----------------------------------------------------
 
@@ -247,7 +279,7 @@ class STRise:
             raise ValueError('Specified black box "{}" is not supported'
                              .format(black_box))
         self.black_box = black_box
-        self.black_box_fn = self.black_boxes[black_box]
+        self._black_box_fn = None
         self._preprocess, self._mean = _matcher_input(black_box)
 
     def _get_net(self, name, ebp_version=None):

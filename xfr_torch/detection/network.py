@@ -166,6 +166,14 @@ def params_from_jax(np_params, device="cuda", dtype=None):
             for part, p in np_params.items()}
 
 
+@torch.no_grad()
+def _forward(graph, params, x, keep):
+    """``keep``'s tensors of a forward op by op, without autograd: the
+    detector's forwards, at shapes that follow the image, run no fused
+    epilogue."""
+    return I.forward_values(graph, params, x, keep=keep)
+
+
 class FasterRCNNNetwork:
     """__call__(im [1,3,H,W], im_info [[H, W, scale]]) ->
         (rois [R,5], bbox_pred [R,8], cls_prob [R,2], cls_score [R,2]),
@@ -212,10 +220,10 @@ class FasterRCNNNetwork:
         scores, bbox deltas [1,4A,h,w])."""
         tg, rg, node = self.trunk_graph, self.rpn_graph, self._rpn_bbox_node
         with precision_scope(_PRECISION):
-            feats = I.forward_clean(tg, self.params["trunk"], im,
-                                    keep=(tg.output_id,))[tg.output_id]
-            vals = I.forward_clean(rg, self.params["rpn"], feats,
-                                   keep=(self._rpn_relu, rg.output_id))
+            feats = _forward(tg, self.params["trunk"], im,
+                             keep=(tg.output_id,))[tg.output_id]
+            vals = _forward(rg, self.params["rpn"], feats,
+                            keep=(self._rpn_relu, rg.output_id))
             cls = vals[rg.output_id]
             bbox = O.apply_op(node.op, self.params["rpn"][node.pname],
                               (vals[self._rpn_relu],), node.attrs_dict)
@@ -229,8 +237,8 @@ class FasterRCNNNetwork:
         cls_score)."""
         tg, cls_t = self.top_graph, self._cls_tensor
         with precision_scope(_PRECISION):
-            values = I.forward_clean(tg, self.params["top"], roi_feats,
-                                     keep=(tg.output_id, cls_t))
+            values = _forward(tg, self.params["top"], roi_feats,
+                              keep=(tg.output_id, cls_t))
         cls_score = values[cls_t]
         return values[tg.output_id], torch.softmax(cls_score, dim=1), \
             cls_score

@@ -48,6 +48,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from xfr_torch import epilogue as EP
 from xfr_torch.ebp import interpreter as I
 from xfr_torch.graph import GraphDef
 from xfr_torch.parallel import mesh as MS
@@ -138,10 +139,13 @@ class _EncodeGraph:
     The graph reads the parameters at the addresses they had when it was
     captured.  Capturing waits once for the card (``torch.cuda.graph``
     synchronizes before it begins); a replay waits for nothing.  A replay
-    counts the squeeze-excite gate multiplies it applies (``gates``, as
-    ``interpreter.forward_clean`` counts an eager forward's)."""
+    counts the squeeze-excite gate multiplies it applies (``gates``) and
+    the rows of BatchNorm nodes it applies (``bn_rows``), of them
+    ``bn_rows_fused`` inside a fused epilogue, as
+    ``interpreter.forward_clean`` counts an eager forward's, and the fused
+    epilogues it runs (``epilogues``) in ``fused_epilogue.launches``."""
 
-    gates = 0
+    gates = bn_rows = bn_rows_fused = epilogues = 0
 
     @staticmethod
     def engages(device):
@@ -164,7 +168,13 @@ class _EncodeGraph:
     def replay(self):
         if self.gates:
             count("xfr.enc.se_gates", self.gates)
+        if self.bn_rows:
+            count("xfr.enc.bn_rows", self.bn_rows)
+        if self.bn_rows_fused:
+            count("xfr.enc.bn_rows_fused", self.bn_rows_fused)
         self.graph.replay()
+        if self.epilogues:
+            EP.fused_epilogue.launches += self.epilogues
         return self.y
 
 
@@ -299,7 +309,11 @@ class WhiteboxNetwork(torch.nn.Module):
 
         got = self.captured("encode", encode, ids, shape, dtype, precision,
                             stride)
+        plan = I.clean_plan(graph, params, (enc,), got.x)
         got.gates = graph.n_gates * shape[0]
+        got.bn_rows = plan.n_bn * shape[0]
+        got.bn_rows_fused = plan.n_bn_fused * shape[0]
+        got.epilogues = sum(kind == "chain" for kind, _ in plan.steps)
         return got
 
     def captured(self, tag, fn, ids, shape, dtype, precision=None,
@@ -581,8 +595,10 @@ class Whitebox:
 
         tag = ("pooled_ebp", self._ebp_subtree_mode, self._ebp_with_bias,
                self.eps)
-        return self.net.captured(tag, pooled, ids, shape, torch.float32,
-                                 "high", stride)
+        got = self.net.captured(tag, pooled, ids, shape, torch.float32,
+                                "high", stride)
+        got.bn_rows = self.net.graph.n_bn * shape[0]  # the walk's forward
+        return got
 
     def _contrastive_pair_fn(self, kinds):
         """(params, x, Pns [2,B,K], percentile) -> list of [B,H,W] maps,

@@ -37,6 +37,7 @@ from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
+from xfr_torch import epilogue as EP
 from xfr_torch import ops as O
 from xfr_torch.graph import GraphDef
 from xfr_torch.utils.profiling import count
@@ -57,37 +58,77 @@ def forward_values(graph: GraphDef, params, x,
     ``keep``: tensor ids the caller needs.  When given, the walk stops once
     they are computed and frees every other value after its last reader
     (the port's stand-in for XLA's dead-code elimination and buffer
-    reuse); the returned list then holds only the kept tensors."""
+    reuse); the returned list then holds only the kept tensors.  Op by op
+    either way: ``forward_clean`` is the forward that fuses."""
+    if keep is not None:
+        return _forward_planned(graph, params, x, keep,
+                                EP.plan(graph, tuple(keep), fuse=False))
     values = [None] * graph.n_tensors
     values[graph.input_id] = x
-    want = None if keep is None else set(keep)
-    todo = None if keep is None else set(want)
-    for ni, node in enumerate(graph.nodes):
+    for node in graph.nodes:
         p = params.get(node.pname, {}) if node.pname else {}
         xs = tuple(values[i] for i in node.ins)
         values[node.out] = O.apply_op(node.op, p, xs, node.attrs_dict)
-        if want is None:
-            continue
-        todo.discard(node.out)
-        if not todo:
-            break
-        for i in node.ins:
-            if graph.last_use.get(i) == ni and i not in want:
-                values[i] = None
-    if want is not None:
-        values = [v if t in want else None for t, v in enumerate(values)]
     return values
+
+
+def clean_plan(graph: GraphDef, params, keep: Sequence[int], x):
+    """The ``epilogue.Plan`` of a keep-limited clean forward of ``x``:
+    chains fused where ``epilogue.engages(x)``, else none."""
+    return EP.plan(graph, tuple(keep), EP.biased(graph, params),
+                   EP.engages(x))
 
 
 @torch.no_grad()
 def forward_clean(graph: GraphDef, params, x, keep: Optional[Sequence[int]]
                   = None):
-    """Pass 1: ``forward_values`` without autograd.  While a profiler
-    records, counts the SE gate multiplies of the forward
-    (``xfr.enc.se_gates``: one a row a gated block)."""
+    """Pass 1: ``forward_values`` without autograd.  With ``keep`` the
+    forward runs ``clean_plan``: each chain of pointwise nodes after a
+    tensor (conv bias, BatchNorm, SE gate, residual add, ReLU) is one
+    ``epilogue.fused_epilogue``, equal to the op-by-op forward bit for bit.
+
+    While a profiler records, counts the SE gate multiplies of the forward
+    (``xfr.enc.se_gates``: one a row a gated block), the BatchNorm nodes
+    it applies (``xfr.enc.bn_rows``: one a row a node) and those applied
+    inside a fused epilogue (``xfr.enc.bn_rows_fused``)."""
+    rows = x.shape[0]
     if graph.n_gates:
-        count("xfr.enc.se_gates", graph.n_gates * x.shape[0])
-    return forward_values(graph, params, x, keep)
+        count("xfr.enc.se_gates", graph.n_gates * rows)
+    if keep is None:
+        if graph.n_bn:
+            count("xfr.enc.bn_rows", graph.n_bn * rows)
+        return forward_values(graph, params, x)
+    plan = clean_plan(graph, params, keep, x)
+    if plan.n_bn:
+        count("xfr.enc.bn_rows", plan.n_bn * rows)
+    if plan.n_bn_fused:
+        count("xfr.enc.bn_rows_fused", plan.n_bn_fused * rows)
+    return _forward_planned(graph, params, x, keep, plan)
+
+
+def _forward_planned(graph, params, x, keep, plan):
+    """The steps of ``plan`` (``epilogue.plan``): nodes op by op, each
+    fused chain in one call at its last node, every value dropped after
+    the last step that reads it; returns the kept tensors, None
+    elsewhere."""
+    values = [None] * graph.n_tensors
+    values[graph.input_id] = x
+    nodes = graph.nodes
+    for (kind, a), drop in zip(plan.steps, plan.frees):
+        if kind == "chain":
+            values[a.out] = EP.run_chain(a, graph, params, values)
+        else:
+            node = nodes[a]
+            p = params.get(node.pname, {}) if node.pname else {}
+            if kind == "conv":  # its bias is the chain's
+                p = {"w": p["w"]}
+            values[node.out] = O.apply_op(
+                node.op, p, tuple(values[i] for i in node.ins),
+                node.attrs_dict)
+        for t in drop:
+            values[t] = None
+    want = set(keep)
+    return [v if t in want else None for t, v in enumerate(values)]
 
 
 @torch.no_grad()

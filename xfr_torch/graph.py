@@ -139,13 +139,11 @@ class GraphDef:
             hooks[t].sort(key=lambda h: h[0])
         self._hooks = hooks
         self._consumers = consumers
-        # last_use[t]: index of the last node reading tensor t (forwards
-        # that keep only some tensors free the others after it)
-        self.last_use: Dict[int, int] = {t: max(c)
-                                         for t, c in consumers.items()}
         # the squeeze-excite gates' broadcast multiplies (SENet's ``mul``
         # nodes, the only ones), applied once a row by a whole forward
         self.n_gates = sum(node.op == "mul" for node in self.nodes)
+        # BatchNorm nodes, applied once a row by a whole forward
+        self.n_bn = sum(node.op == "batchnorm2d" for node in self.nodes)
 
         # Static backward event schedule (see module docstring).
         events: List[Event] = []
@@ -165,6 +163,10 @@ class GraphDef:
         # event_node[e]: starting the backward walk at node event_node[e]
         # (or any later node) suffices for event e to fire
         self.event_node: Tuple[int, ...] = tuple(event_node)
+
+    def readers(self, t: int):
+        """Indices of the nodes that read tensor ``t``, once a read."""
+        return tuple(self._consumers.get(t, ()))
 
     def hooks_on(self, t: int):
         return self._hooks.get(t, ())

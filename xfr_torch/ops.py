@@ -160,10 +160,16 @@ def multiply_const(params, xs, *, c=1.0):
 
 
 def concat_zero_channels(params, xs, *, mult=1):
-    """ConcatChannels: pad channels with zeros by concatenation."""
+    """ConcatChannels: pad channels with zeros by concatenation.  The
+    zeros take x's memory format, so that a channels_last block's
+    residual stays channels_last (the values do not depend on it)."""
     (x,) = xs
     n, c, h, w = x.shape
-    zeros = x.new_zeros((n, c * mult, h, w))
+    last = not x.is_contiguous() and x.is_contiguous(
+        memory_format=torch.channels_last)
+    zeros = torch.empty((n, c * mult, h, w), dtype=x.dtype, device=x.device,
+                        memory_format=torch.channels_last if last
+                        else torch.contiguous_format).zero_()
     return torch.cat([x, zeros], dim=1)
 
 
