@@ -38,10 +38,8 @@ c.phase_device(); c.phase_build(); c.phase_lightcnn()"``:
   tf32       seed 1's map with score_precision=None (TF32 allowed), twice
   breakdown  where one map's time goes, on seed 1's map again
   pipeline   seed 1 at "high" on the materialized-mask path (bench.py's),
-             with the launch's host uploads as they were before it
-             stopped waiting for the card (pageable and blocking), then as
-             they are: map seconds beside main's, the same bits; one
-             chunk's encode on each path's blend layout
+             launched with every host sync refused: map seconds beside
+             main's; one chunk's encode on each path's blend layout
   wb_parity  bench.py's whitebox 4-map mix (mean-EBP, contrastive,
              truncated-contrastive, weighted-subtree top-32) on the card
              and on the CPU, same weights: ResNet-101 at full widths with
@@ -52,10 +50,6 @@ c.phase_device(); c.phase_build(); c.phase_lightcnn()"``:
              maps/s, peak memory, each stage's CUDA-event time, the host
              drain, launch against mix time (the sweep's kernels by device
              time: tools/torch_whitebox_profile.py)
-  whitebox_previous_form  one mix alone in the forms the port had before
-             one input gave one result on the card (previous_form) and in
-             the present ones, in turns: maps/s and each form's
-             run-to-run difference
   wsebp_bf16 one full-depth probe's weighted-subtree map, bfloat16 sweep
              against float32 sweep
   bench      bench_torch.run through its real code on the same net at
@@ -156,10 +150,8 @@ results to the same bits (repeat_diff, check_repeats): one input, one
 result, on every run of the card.  Every warm STRise.launch_evaluate
 (main's and tf32's through K1, pipeline's and bench's on the
 materialized-mask path; refs and gallery already embedded) runs with
-every host sync refused: the launch waits for the card nowhere.  The variants and train phases also
-time the previous form against the present one.  Two functions run
-alone, not by this script: phase_sources (which part of the previous
-form moved results from run to run) and phase_audit (the paths under
+every host sync refused: the launch waits for the card nowhere.  One
+function runs alone, not by this script: phase_audit (the paths under
 torch.use_deterministic_algorithms(True)).
 
 The last lines are the card's name and power limit, the "kernels" line
@@ -273,53 +265,6 @@ def check_repeats(phase, diffs):
     if bad:
         raise AssertionError(f"{phase}: repeats on the same inputs differ: "
                              f"{bad}")
-
-
-@contextlib.contextmanager
-def previous_form(maxpool=True, cudnn=True):
-    """The forms the port had before one input gave one result on the
-    card, swapped in for a block so that one call can measure both (as
-    detector_precision swaps the detector's private precision):
-    ``maxpool``, the row-batched max-pool vjp as a scatter-add, whose
-    float atomics sum overlapping windows in the card's order; ``cudnn``,
-    cuDNN's algorithm flags as the caller left them (deterministic off),
-    so that cuDNN may pick a backward-data or weight-gradient algorithm
-    that sums with atomics.  Nothing else changes."""
-    import torch
-    import torch.nn.functional as F
-    from xfr_torch import ops as O
-
-    def scatter_rows_maxpool2d(params, xs, g, *, kernel=(2, 2), stride=None,
-                               padding=(0, 0), ceil_mode=False):
-        (x,) = xs
-        kernel, padding = O._pair(kernel), O._pair(padding)
-        stride = kernel if stride is None else O._pair(stride)
-        xp = O._pool_pad(x, kernel, stride, padding, ceil_mode, float("-inf"))
-        _, idx = F.max_pool2d(xp, kernel, stride, return_indices=True)
-        r = g.shape[0]
-        p, c, hp, wp = xp.shape
-        gp = g.new_zeros((r, p * c, hp * wp))
-        gp.scatter_add_(2, idx.reshape(1, p * c, -1).expand(r, -1, -1),
-                        g.reshape(r, p * c, -1))
-        return (O._unpad(gp.reshape(r, p, c, hp, wp), x, kernel, stride,
-                         padding, ceil_mode),)
-
-    cud = torch.backends.cudnn
-    flags, rule = cud.flags, O._ROW_VJPS["maxpool2d"]
-
-    def callers_flags(**kw):
-        kw.update(benchmark=cud.benchmark, deterministic=cud.deterministic)
-        return flags(**kw)
-
-    try:
-        if maxpool:
-            O._ROW_VJPS["maxpool2d"] = scatter_rows_maxpool2d
-        if cudnn:
-            cud.flags = callers_flags
-        yield
-    finally:
-        O._ROW_VJPS["maxpool2d"] = rule
-        cud.flags = flags
 
 
 def phase_device():
@@ -507,7 +452,7 @@ def epilogue_encode(name, nhwc, rows=CHUNK):
     and the whole encode captured op by op and planned, timed."""
     import torch
     from xfr_torch import epilogue as EP
-    from xfr_torch.ebp import engine as E
+    from xfr_torch import replay as R
     from xfr_torch.ebp import interpreter as I
     from xfr_torch.models import create_wbnet
     from xfr_torch.utils.device import precision_scope
@@ -560,7 +505,7 @@ def epilogue_encode(name, nhwc, rows=CHUNK):
 
     encode = {}
     for form, fn in (("op_by_op", op_by_op), ("planned", planned)):
-        g = E._EncodeGraph(fn, x.clone(memory_format=torch.preserve_format))
+        g = R.Captured(fn, x.clone(memory_format=torch.preserve_format))
         encode[form] = {"ms": cuda_ms(g.replay, reps=7, inner=3),
                         "kernels": device_kernels(g.replay),
                         "out": g.replay().clone()}
@@ -969,65 +914,25 @@ def phase_breakdown(wb, make, kernel_ms, st_k):
     check_repeats("breakdown", repeat)
 
 
-@contextlib.contextmanager
-def previous_uploads():
-    """STRise's launch with its host uploads as they were before it
-    stopped waiting for the card, swapped in for a block: ``_tensor``'s
-    pageable copy, MEAN_RGB uploaded at every preprocess and the blur's
-    gaussian at every blur, each a copy that waits for the card (the
-    draw's pinned uploads stay).  The values uploaded are the same."""
-    import torch
-    from xfr_torch.blackbox import masks as M
-    from xfr_torch.blackbox.strise import STRise
-    from xfr_torch.models import resnet101 as R
-
-    def tensor(self, a):
-        return torch.as_tensor(np.asarray(a) if not isinstance(
-            a, torch.Tensor) else a, dtype=torch.float32, device=self.device)
-
-    def gaussian(sigma, truncate, dtype, device):
-        radius = int(truncate * sigma + 0.5)
-        k = np.exp(-0.5 * (np.arange(-radius, radius + 1) / sigma) ** 2)
-        return torch.as_tensor(k / k.sum(), dtype=dtype, device=device)
-
-    def mean(dtype, device):
-        return torch.as_tensor(R.MEAN_RGB, dtype=dtype, device=device)
-
-    saved = STRise._tensor, M._gaussian_kernel, R.mean_rgb
-    STRise._tensor, M._gaussian_kernel, R.mean_rgb = tensor, gaussian, mean
-    try:
-        yield
-    finally:
-        STRise._tensor, M._gaussian_kernel, R.mean_rgb = saved
-
-
 def phase_pipeline(wb, make, main_s):
     """What STRise's materialized-mask map (bench.py's path) costs beside
-    main's K1 map (PERF.md §7).  Seed 1 at "high", launched and finished,
-    first with previous_uploads, then as the port is, with every host
-    sync refused during the launch: the two maps must be the same bits.
-    ``main_s``: main's seed-1 map seconds (K1, "high").  Then one scoring
-    chunk's encode at "high" by CUDA events on the blends as each path
-    hands them over: the materialized path's preprocess permutes an
-    [N,H,W,3] blend (NHWC memory viewed as NCHW), K1 writes NCHW."""
+    main's K1 map (PERF.md §7).  Seed 1 at "high", launched with every
+    host sync refused, and finished.  ``main_s``: main's seed-1 map
+    seconds (K1, "high").  Then one scoring chunk's encode at "high" by
+    CUDA events on the blends as each path hands them over: the
+    materialized path's preprocess permutes an [N,H,W,3] blend (NHWC
+    memory viewed as NCHW), K1 writes NCHW."""
     import torch
     from xfr_torch.blackbox.strise import _encode_and_score
     from xfr_torch.utils.device import precision_scope
 
-    def one_map(refuse):
-        st = make(1, score_precision="high")
-        torch.cuda.synchronize()
-        t0 = time.time()
-        with host_syncs_refused(refuse):
-            finish = st.launch_evaluate()
-        smap = finish()
-        return time.time() - t0, smap
-
-    with previous_uploads():
-        prev_s, prev_map = one_map(False)
-    new_s, new_map = one_map(True)
-    check_map(new_map)
-    repeat = {"seed1": repeat_diff(new_map, prev_map)}
+    st = make(1, score_precision="high")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with host_syncs_refused(True):
+        finish = st.launch_evaluate()
+    check_map(finish())
+    map_s = time.time() - t0
 
     blend = torch.rand((CHUNK, SIZE, SIZE, 3), device="cuda") * 255
     layouts = {"nhwc_view": blend.permute(0, 3, 1, 2),
@@ -1040,11 +945,9 @@ def phase_pipeline(wb, make, main_s):
             reps=5, inner=2, warmup=1) for k, x in layouts.items()}
     per_map = -(-N_MASKS // CHUNK)
     emit("pipeline", score_precision="high", path="materialized masks",
-         previous_uploads_map_s=prev_s, map_s=new_s, main_k1_map_s=main_s,
-         launch_with_host_syncs_refused=True,
-         repeat_of_previous_form=repeat, encode_chunk_ms=enc_ms,
+         map_s=map_s, main_k1_map_s=main_s,
+         launch_with_host_syncs_refused=True, encode_chunk_ms=enc_ms,
          encode_per_map_s={k: v * per_map / 1e3 for k, v in enc_ms.items()})
-    check_repeats("pipeline", repeat)
 
 
 @contextlib.contextmanager
@@ -1349,77 +1252,7 @@ def phase_whitebox():
     wb.wsebp_dtype = torch.bfloat16
     w = BT.whitebox_workload(wb, np.random.RandomState(0), WB_B)
     emit("whitebox", **run_mix(wb, w))
-    emit("whitebox_previous_form", **mix_form_cost(wb, w))
     return wb, w
-
-
-FORMS = {"previous": dict(), "scatter_only": dict(cudnn=False),
-         "cudnn_only": dict(maxpool=False)}
-
-
-def in_form(form):
-    """A block in ``form``: "new" (the port as it is) or one of FORMS,
-    previous_form's arguments."""
-    return (contextlib.nullcontext() if form == "new"
-            else previous_form(**FORMS[form]))
-
-
-def mix_form_cost(wb, w, attribute=()):
-    """One mix alone (launch, drain, synchronize; host clock) in the
-    previous form and the new one in turns (previous, new, new,
-    previous, after a warm-up in the previous form), then each form of
-    ``attribute`` (FORMS' "scatter_only", "cudnn_only") twice.  Each
-    form's two mixes on the same inputs: the largest difference of each
-    method's maps (repeat_diff; the new form's must read 0), which names
-    the sources.  Returns the record."""
-    import torch
-
-    def one(form):
-        with in_form(form):
-            torch.cuda.synchronize()
-            t0 = time.time()
-            out = BT.drain_mix(wb, BT.launch_mix(wb, w))
-            torch.cuda.synchronize()
-        return time.time() - t0, out
-
-    one("previous")
-    runs = {}
-    for form in ("previous", "new", "new", "previous") + attribute:
-        runs.setdefault(form, []).append(one(form))
-    wb.net.reset_classifier()
-    B = w["probes"].shape[0]
-    rec = {form: {"mix_s": [t for t, _ in r],
-                  "maps_per_s": 4 * B * len(r) / sum(t for t, _ in r),
-                  "run_to_run": {name: repeat_diff(r[0][1][name],
-                                                   r[1][1][name])
-                                 for name in r[0][1]}}
-           for form, r in runs.items()}
-    check_repeats("whitebox mix, new form", rec["new"]["run_to_run"])
-    rec["map_max"] = {name: float(max(np.max(m) for m in maps))
-                      for name, maps in runs["new"][0][1].items()
-                      if name != "subtrees"}
-    return {"forms": {"previous": "scatter-add max-pool vjp and the "
-                      "caller's cuDNN flags", "scatter_only": "the "
-                      "scatter-add vjp alone", "cudnn_only": "the "
-                      "caller's cuDNN flags alone"}, **rec}
-
-
-def phase_sources():
-    """Which of the previous form's two parts moved the results from run
-    to run (run alone, not by main): the full-depth mix of phase_whitebox
-    in each form twice (mix_form_cost with the attribution forms):
-
-        python3 -c "import chip_smoke as c; c.phase_sources()"
-    """
-    import torch
-
-    wb = whitebox_net("cuda")
-    wb.wsebp_dtype = torch.bfloat16
-    w = BT.whitebox_workload(wb, np.random.RandomState(0), WB_B)
-    BT.drain_mix(wb, BT.launch_mix(wb, w))
-    emit("sources", **mix_form_cost(
-        wb, w, attribute=("scatter_only", "scatter_only", "cudnn_only",
-                          "cudnn_only")))
 
 
 def phase_wsebp_bf16(wb, w):
@@ -2268,8 +2101,7 @@ def phase_variants():
     map is zero, as in the JAX package's goldens) and subtree_ebp
     (percentile_argmax, top 1 and 8), each called once to warm up, then
     timed, the two results the same bit for bit (top 1 after top 8, whose
-    rank walk it shares, runs once), every map non-zero, and top 8 in
-    the previous and the present form (previous_form); at one
+    rank walk it shares, runs once), every map non-zero; at one
     block a stage the same calls at event 37 (a BatchNorm there) plus
     subtree_ebp(mode="percentile") on
     the card and on the CPU, same weights, in float64 and in float32.
@@ -2323,15 +2155,6 @@ def phase_variants():
             repeats[name] = repeat_diff(res, first)
         if not np.isfinite(m).all() or m.min() < 0 or not m.max() > 0:
             raise AssertionError(f"variant {name}: bad map {full[name]}")
-    # subtree_ebp at top 8 in the previous form and the new one
-    form_s = {}
-    for form in ("previous", "new"):
-        with in_form(form):
-            torch.cuda.synchronize()
-            t0 = time.time()
-            wb.subtree_ebp(xc, 0, 1, topk=8)
-            torch.cuda.synchronize()
-        form_s.setdefault(form, []).append(time.time() - t0)
     event_tag = wb.net.graph.events[k_full].tag
     del wb
 
@@ -2426,8 +2249,7 @@ def phase_variants():
               "float32_map_err_rel_to_max": 1e-4,
               "float64_score_rtol": 1e-9, "float32_score_rtol": 1e-4,
               "uint8_prior_abs": "2 uint8 steps of its max"},
-         k1_launches=k1_launches() - k1_0, repeat_max_abs_diff=repeats,
-         subtree_top8_s_by_form=form_s)
+         k1_launches=k1_launches() - k1_0, repeat_max_abs_diff=repeats)
     check_no_k1("variants", k1_launches() - k1_0)
     check_repeats("variants", repeats)
     if not ok:
@@ -3095,31 +2917,11 @@ def train_step_profile(step, p, o, x, y):
                 sorted(groups.items(), key=lambda kv: -kv[1]["ms"]))}
 
 
-def train_form_cost(step, init, params, x, y, timed=3):
-    """Runs of the step in the previous form (previous_form's cuDNN
-    flags; autograd's max-pool backward was never the scatter) and the
-    new one in turns (previous, new, new, previous), each from init's
-    fresh state of ``params``: the first step's loss and every leaf after
-    it kept, then ``timed`` steps by CUDA events.  Each form's two first
-    steps from the one state: repeat_diff of loss and leaves (the new
-    form's must read 0, raised on by phase_train).  Returns the record."""
-    def run(form):
-        with previous_form(maxpool=False) if form == "previous" else \
-                contextlib.nullcontext():
-            p, o = init(params)
-            p, o, loss = step(p, o, x, y)
-            first = {"loss": loss.detach().clone(), "leaves": {
-                k: {kk: v.detach().clone() for kk, v in leaves.items()}
-                for k, leaves in p.items()}}
-            p, o, r = timed_train_steps(step, p, o, x, y, timed)
-        return first, r["median_step_ms"]
-
-    runs = {}
-    for form in ("previous", "new", "new", "previous"):
-        runs.setdefault(form, []).append(run(form))
-    return {form: {"median_step_ms": [ms for _, ms in r],
-                   "first_step_repeat": repeat_diff(r[0][0], r[1][0])}
-            for form, r in runs.items()}
+def step_state(p, loss):
+    """A copy of a train step's loss and every leaf after it."""
+    return {"loss": loss.detach().clone(), "leaves": {
+        k: {kk: v.detach().clone() for kk, v in leaves.items()}
+        for k, leaves in p.items()}}
 
 
 def mesh_step_check(graph, params, x, y):
@@ -3177,11 +2979,10 @@ def phase_train():
     and TRAIN_TIMED under None (TF32), each from the same start weights:
     step time by CUDA events, images/s, every step's loss (finite), peak
     memory after a gc.collect() beside what was resident at the start,
-    and one profiled step's idle share and device time by group; then
-    train_form_cost: the step in the previous and the new form in turns,
-    and two first steps from one state in each, whose losses and leaves
-    must be the same bit for bit in the new form.  Then the one-rank NCCL
-    mesh step against the plain step (mesh_step_check).  K1 must launch 0
+    and one profiled step's idle share and device time by group; then a
+    second first step from the start weights, whose loss and leaves must
+    equal the warm-up's bit for bit.  Then the one-rank NCCL mesh step
+    against the plain step (mesh_step_check).  K1 must launch 0
     times."""
     import tempfile
 
@@ -3219,24 +3020,24 @@ def phase_train():
         t0 = time.time()
         p, o, loss = step(p, o, x, y)
         warm = {"loss": float(loss), "s": time.time() - t0}
+        first = step_state(p, loss)
         p, o, r = timed_train_steps(step, p, o, x, y, TRAIN_TIMED)
         r.update(warmup=warm, peak_mem_bytes=torch.cuda.max_memory_allocated(),
                  start_mem_bytes=start_mem,
                  profile=train_step_profile(step, p, o, x, y))
         ok &= bool(np.isfinite([warm["loss"]] + r["losses"]).all())
         rec[str(precision)] = r
-        del p, o
-        rec[str(precision)]["by_form"] = train_form_cost(step, init, params,
-                                                         x, y)
-        del step, init
+        p, o = init(params)
+        p, o, loss = step(p, o, x, y)
+        r["first_step_repeat"] = repeat_diff(step_state(p, loss), first)
+        del p, o, first, step, init
     rec["mesh_step"] = mesh_step_check(graph, params, x, y)
     k1 = k1_launches() - k1_0
     emit("train", **rec, k1_launches=k1)
     check_no_k1("train", k1)
     for precision in ("high", "None"):
         check_repeats("train, " + precision,
-                      {"first_step": rec[precision]["by_form"]["new"][
-                          "first_step_repeat"]})
+                      {"first_step": rec[precision]["first_step_repeat"]})
     if not ok or not rec["mesh_step"]["ok"]:
         raise AssertionError(f"train: non-finite losses or the mesh step "
                              f"disagrees: {rec}")
@@ -3671,11 +3472,11 @@ def phase_audit():
     """The paths of this script once each at reduced size (ResNet-101 at
     full widths with one block a stage; the detector at full width) under
     ``torch.use_deterministic_algorithms(True)`` with
-    CUBLAS_WORKSPACE_CONFIG=:4096:8, in the previous form and in the new
-    one: every operation PyTorch knows to have no deterministic form
-    raises there, and its message names it.  (An operation that has one,
-    as a scatter-add or cuDNN's algorithms, switches to it silently:
-    those sources show in the repeats of the whole script, by form.)
+    CUBLAS_WORKSPACE_CONFIG=:4096:8: every operation PyTorch knows to have
+    no deterministic form raises there, and its message names it.  (An
+    operation that has one, as a scatter-add or cuDNN's algorithms,
+    switches to it silently: those sources show in the repeats of the
+    whole script.)
     Sets process-wide state, so it must be the first use of the card in
     its process:
 
@@ -3763,16 +3564,13 @@ def phase_audit():
              "detect": detect, "train_high": lambda: train("high"),
              "train_tf32": lambda: train(None)}
     raised = {}
-    for form in ("previous", "new"):
-        for name, fn in paths.items():
-            try:
-                with in_form(form):
-                    fn()
-                torch.cuda.synchronize()
-            except RuntimeError as e:
-                raised[form + " " + name] = str(e)[:400]
-    emit("audit", paths=sorted(paths), forms=["previous", "new"],
-         raised=raised,
+    for name, fn in paths.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            raised[name] = str(e)[:400]
+    emit("audit", paths=sorted(paths), raised=raised,
          cublas_workspace_config=os.environ["CUBLAS_WORKSPACE_CONFIG"])
 
 

@@ -26,7 +26,9 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from torch_fixtures import eager_replay  # noqa: F401
 from xfr_torch import epilogue as EP
+from xfr_torch import replay as R
 from xfr_torch.detection import network as DN
 from xfr_torch.ebp import engine as E
 from xfr_torch.ebp import interpreter as I
@@ -269,11 +271,21 @@ def _counted(fn):
             if v != before.get(k, 0)}
 
 
-def test_batchnorm_rows_are_counted():
+def _replayed_encode(graph, params, enc, x):
+    """The encode of ``x`` through ``replay.run``, as STRise's chunks run
+    it."""
+    def encode(x):
+        e = I.forward_clean(graph, params, x, keep=(enc,))[enc]
+        return e.reshape(x.shape[0], -1)
+
+    return R.run(encode, x, graph, "encode", I.param_ids(graph, params, enc))
+
+
+def test_batchnorm_rows_are_counted(request):
     """Under a profiler a keep-limited forward counts its BatchNorm nodes
     a row (``xfr.enc.bn_rows``), all fused (``xfr.enc.bn_rows_fused``);
     a full forward counts them unfused; LightCNN counts none; a replay
-    counts what ``captured_encode`` set; nothing counts without a
+    counts what its capture's forward counted; nothing counts without a
     profiler."""
     g, shapes, enc, chw = _build("senet50_256")
     params = common.init_params(shapes, seed=1)
@@ -290,46 +302,71 @@ def test_batchnorm_rows_are_counted():
     assert _counted(lambda: I.forward_clean(
         lg, common.init_params(lshapes, seed=1), lx, keep=(lenc,))) == {}
 
-    rep = E._EncodeGraph.__new__(E._EncodeGraph)
-    rep.graph, rep.y = type("G", (), {"replay": lambda self: None})(), 0
-    rep.bn_rows, rep.bn_rows_fused = 100 * 64, 100 * 64
-    rep.epilogues = 100
-    launches = EP.fused_epilogue.launches
-    assert _counted(rep.replay) == {"xfr.enc.bn_rows": 6400,
-                                    "xfr.enc.bn_rows_fused": 6400}
-    assert EP.fused_epilogue.launches == launches + 100
+    request.getfixturevalue("eager_replay")
+    _replayed_encode(g, params, enc, x)  # captures
+    assert _counted(lambda: _replayed_encode(g, params, enc, x)) == {
+        "xfr.enc.se_gates": 4 * 3, "xfr.enc.bn_rows": n_bn * 3,
+        "xfr.enc.bn_rows_fused": n_bn * 3}
     before = profiling.counters()
     I.forward_clean(g, params, x, keep=(enc,))
+    _replayed_encode(g, params, enc, x)
     assert profiling.counters() == before
 
 
-class _EagerGraph:
-    """The capture's stand-in off a card: the encode run eagerly at each
-    replay."""
-
-    def __init__(self, fn, x):
-        self.fn, self.x = fn, x
-        self.y = fn(x)
-
-    def replay(self):
-        return self.fn(self.x)
-
-
-def test_captured_encode_counts_its_batchnorm_rows(monkeypatch):
-    """``captured_encode`` gives its graph the plan's BatchNorm rows (all
-    fused) and its chains, and the prior walk's graph its unfused
-    BatchNorm rows."""
+def test_captured_encode_counts_its_batchnorm_rows(eager_replay):
+    """A captured encode records the BatchNorm rows its forward counts
+    (all fused), and the prior walk's graph its unfused BatchNorm rows."""
     g, shapes, enc, chw = _build("resnet101")
     net = E.WhiteboxNetwork(g, common.init_params(shapes, seed=1),
                             encode_tensor=enc, classifier_pname="fc2",
                             num_classes=16)
-    monkeypatch.setattr(E, "_EncodeGraph", _EagerGraph)
-    got = net.captured_encode(net.params, (2,) + chw, torch.float32, "high")
-    assert got.bn_rows == got.bn_rows_fused == g.n_bn * 2 == 13 * 2
-    assert got.epilogues == 13
-    walk = E.Whitebox(net).captured_pooled_ebp(net.params, (1,) + chw,
-                                               None)
-    assert walk.bn_rows == g.n_bn and not getattr(walk, "bn_rows_fused", 0)
+    x = torch.randn((2,) + chw)
+    _replayed_encode(g, net.params, enc, x)
+    E.Whitebox(net).uniform_pooled_ebp(net.params, x[:1])
+    recorded = {k.tag if k.tag == "encode" else k.tag[0]: c.counts
+                for k, c in R.graphs(g).items()}
+    assert g.n_bn == 13
+    assert recorded == {
+        "encode": {"xfr.enc.bn_rows": 13 * 2, "xfr.enc.bn_rows_fused": 13 * 2},
+        "pooled_ebp": {"xfr.enc.bn_rows": 13}}
+
+
+class _Owner:
+    """An owner of ``replay.run``'s graphs."""
+
+
+def test_a_replay_makes_what_its_capture_counted(eager_replay):
+    """While a graph is captured, its function's counts and launches are
+    recorded and not made, under a profiler too; each replay then makes
+    exactly what was recorded: the counts while a profiler records, the
+    launches always.  The capture's eager warm-up counts as an eager
+    call."""
+    def fn(x):
+        profiling.count("xfr.enc.bn_rows", 7 * x.shape[0])
+        profiling.launched(EP.fused_epilogue)
+        return x + 1
+
+    x = torch.zeros((3, 2))
+    launches = EP.fused_epilogue.launches
+    with profiling.recording() as recorded:
+        assert _counted(lambda: fn(x)) == {}
+    assert recorded == {"xfr.enc.bn_rows": 21, EP.fused_epilogue: 1}
+    assert EP.fused_epilogue.launches == launches
+
+    owner = _Owner()
+    assert _counted(lambda: R.run(fn, x, owner, "t", ())) == {
+        "xfr.enc.bn_rows": 2 * 21}  # the warm-up and the first replay
+    (captured,) = R.graphs(owner).values()
+    assert captured.counts == recorded
+    assert EP.fused_epilogue.launches == launches + 2
+    for n in (1, 2):
+        got = _counted(lambda: R.run(fn, x, owner, "t", ()))
+        assert got == {"xfr.enc.bn_rows": 21}
+        assert EP.fused_epilogue.launches == launches + 2 + n
+    before = profiling.counters()
+    assert torch.equal(R.run(fn, x + 1, owner, "t", ()), x + 2)
+    assert profiling.counters() == before
+    assert EP.fused_epilogue.launches == launches + 5
 
 
 # ---------------------------------------------------------------------------
@@ -436,20 +473,20 @@ def test_captured_encode_equals_the_op_by_op_encode_on_card(name, precision,
     with precision_scope(precision):
         want = I.forward_values(g, net.params, x, keep=(enc,))[enc]
     want = want.reshape(64, -1)
-    captured = net.captured_encode(net.params, x.shape, x.dtype, precision,
-                                   x.stride())
+    with precision_scope(precision):
+        _replayed_encode(g, net.params, enc, x)  # captures
+    (captured,) = R.graphs(g).values()
     launches = EP.fused_epilogue.launches
     torch.cuda.set_sync_debug_mode("error")
     try:
-        captured.x.copy_(x)
-        got = captured.replay().clone()
         with precision_scope(precision):
+            got = _replayed_encode(g, net.params, enc, x).clone()
             eager = I.forward_clean(g, net.params, x, keep=(enc,))[enc]
     finally:
         torch.cuda.set_sync_debug_mode(0)
     plan = I.clean_plan(g, net.params, (enc,), x)
     # one replay and one eager encode, each running every chain once
-    assert captured.epilogues == len(plan.chains)
+    assert captured.counts[EP.fused_epilogue] == len(plan.chains)
     assert EP.fused_epilogue.launches == launches + 2 * len(plan.chains)
     assert plan.n_bn_fused == g.n_bn
     assert _same_bits(got, want)

@@ -1,12 +1,11 @@
-"""The monotone blend+encode steps' captured encode (``engine._EncodeGraph``,
-``WhiteboxNetwork.captured_encode``).
+"""The monotone blend+encode steps' captured encode (``replay.run``).
 
 On the CPU the steps stay eager; the staged form of a step (the blend
 written into the static input, the encode replayed, the static output
 copied into the step's block) runs there with an eager stand-in for the
-CUDA graph, and gives the eager loop's embeddings bit for bit.  The
-graph cache follows the parameters' addresses and empties on a device
-move and on ``clear()``.  On a card (marker ``cuda``, skipped without
+CUDA graph (``torch_fixtures.eager_replay``), and gives the eager loop's
+embeddings bit for bit.  The graph cache follows the parameters'
+addresses and empties on a device move and on ``clear()``.  On a card (marker ``cuda``, skipped without
 one) the graphed steps of two groups in flight equal the eager loop's bit
 for bit at full depth, and a parameter swap captures again.
 
@@ -21,11 +20,14 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from torch_fixtures import eager_replay  # noqa: F401
+from xfr_torch import replay as R
 from xfr_torch.ebp import engine as E
 from xfr_torch.models import common
 from xfr_torch.models import lightcnn as LCNN
 from xfr_torch.models import resnet101 as R101
 from xfr_torch.utils import profiling
+from xfr_torch.utils.device import precision_scope
 
 MATCHERS = ["resnet101", "lightcnn29"]
 REDUCED = (1, 1, 1, 1)
@@ -61,21 +63,6 @@ def _launch(wb, group, T):
     return wb.launch_blend_embeddings_counts_multi(*group, T, norm=False)
 
 
-class _EagerGraph:
-    """The capture's stand-in off a card: the same static input and
-    output buffers, the encode run eagerly at each replay."""
-
-    engages = staticmethod(lambda device: True)
-
-    def __init__(self, encode, x):
-        self.encode, self.x = encode, x
-        self.y = encode(x)
-
-    def replay(self):
-        self.y.copy_(self.encode(self.x))
-        return self.y
-
-
 def _counted(fn):
     """(fn(), the counters it added) while a CPU profiler records."""
     before = profiling.counters()
@@ -87,7 +74,7 @@ def _counted(fn):
 
 
 @pytest.mark.parametrize("name", MATCHERS)
-def test_staged_steps_equal_the_eager_loop(name, monkeypatch):
+def test_staged_steps_equal_the_eager_loop(name, request):
     """Reduced-depth matchers, M = 4 maps of T = 10 thresholds in steps
     of 4 rows (3 steps a map, 2 rows past T), two groups launched before
     either finishes: the staged steps give the eager loop's embeddings
@@ -96,9 +83,9 @@ def test_staged_steps_equal_the_eager_loop(name, monkeypatch):
     wb.blend_batch = wb.batch_size = 4
     T, groups = 10, [_group(chw, 4, 10, seed) for seed in (0, 1)]
     want = [_launch(wb, g, T)() for g in groups]
-    assert wb.net.encode_graphs == {}
+    assert R.graphs(wb.net.graph) == {}
 
-    monkeypatch.setattr(E, "_EncodeGraph", _EagerGraph)
+    request.getfixturevalue("eager_replay")
 
     def staged():
         fins = [_launch(wb, g, T) for g in groups]
@@ -108,18 +95,17 @@ def test_staged_steps_equal_the_eager_loop(name, monkeypatch):
     for g, w in zip(got, want):
         assert g.shape == (4, T, w.shape[-1])
         np.testing.assert_array_equal(g, w)
-    # the stand-in encodes eagerly: the capture's rows and each replay's
-    # count their BatchNorm nodes (ResNet-101's 13 at this depth, all in a
-    # fused epilogue; LightCNN has none)
+    # the capture's eager warm-up and each replay count their BatchNorm
+    # nodes (ResNet-101's 13 at this depth, all in a fused epilogue;
+    # LightCNN has none); the capture itself counts nothing
     bn = {k: wb.net.graph.n_bn * 4 * (2 * 12 + 1)
           for k in ("xfr.enc.bn_rows", "xfr.enc.bn_rows_fused")
           if wb.net.graph.n_bn}
     assert counted == {"xfr.eval.steps": 2 * 12,
                        "xfr.eval.rows_encoded": 2 * 48,
                        "xfr.eval.rows_needed": 2 * 40,
-                       "xfr.eval.graph_captures": 1,
                        "xfr.eval.graph_replays": 2 * 12, **bn}
-    assert len(wb.net.encode_graphs) == 1
+    assert len(R.graphs(wb.net.graph)) == 1
 
 
 def test_cpu_steps_stay_eager_and_count_no_replays():
@@ -131,51 +117,55 @@ def test_cpu_steps_stay_eager_and_count_no_replays():
     assert out.shape == (2, 5, 256) and np.isfinite(out).all()
     assert counted == {"xfr.eval.steps": 4, "xfr.eval.rows_encoded": 16,
                        "xfr.eval.rows_needed": 10}
-    assert wb.net.encode_graphs == {}
+    assert R.graphs(wb.net.graph) == {}
 
 
-def test_graph_cache_follows_params_and_device(monkeypatch):
+def test_graph_cache_follows_params_and_device(eager_replay, monkeypatch):
     """One graph per input shape under one set of parameter tensors;
     replacing them (new addresses, other values) captures again and drops
     the old set's graphs; a device move (``_apply``) and ``clear()``
     empty the cache."""
-    monkeypatch.setattr(E, "_EncodeGraph", _EagerGraph)
     wb, chw = _whitebox("lightcnn29")
     net = wb.net
+
+    def graphs():
+        return R.graphs(net.graph)
+
     wb.blend_batch = wb.batch_size = 4
     group = _group(chw, 1, 3, 4)
+    with precision_scope(None):
+        tf32 = R.precision()
 
     _launch(wb, group, 3)()
-    (key, first), = net.encode_graphs.items()
-    assert key[:4] == ((4, 1, 128, 128), torch.float32,
-                       torch.device("cpu"), None)
+    (key, first), = graphs().items()
+    assert (key.shape, key.dtype, key.device, key.precision, key.tag) == (
+        (4, 1, 128, 128), torch.float32, torch.device("cpu"), tf32,
+        "eval_step")
     _launch(wb, group, 3)()
-    assert net.encode_graphs == {key: first}
+    assert graphs() == {key: first}
 
     wb.blend_batch = wb.batch_size = 2  # another step shape, same params
     _launch(wb, group, 3)()
-    assert len(net.encode_graphs) == 2
+    assert len(graphs()) == 2
 
     old = net.params
     net.params = {k: {kk: vv * 1.5 for kk, vv in p.items()}
                   for k, p in old.items()}
     swapped = _launch(wb, group, 3)()
-    (key2, graph2), = net.encode_graphs.items()
-    assert key2[:4] == ((2, 1, 128, 128), torch.float32,
-                        torch.device("cpu"), None)
-    assert key2[4] != key[4] and graph2 is not first
-    monkeypatch.setattr(E._EncodeGraph, "engages",
-                        staticmethod(lambda device: False))
+    (key2, graph2), = graphs().items()
+    assert (key2.shape, key2.dtype, key2.device, key2.precision) == (
+        (2, 1, 128, 128), torch.float32, torch.device("cpu"), tf32)
+    assert key2.params != key.params and graph2 is not first
+    monkeypatch.setattr(R, "engages", lambda device: False)
     np.testing.assert_array_equal(swapped, _launch(wb, group, 3)())
 
     net.to("cpu")
-    assert net.encode_graphs == {}
-    monkeypatch.setattr(E._EncodeGraph, "engages",
-                        staticmethod(lambda device: True))
+    assert graphs() == {}
+    monkeypatch.setattr(R, "engages", lambda device: True)
     _launch(wb, group, 3)()
-    assert len(net.encode_graphs) == 1
+    assert len(graphs()) == 1
     net.clear()
-    assert net.encode_graphs == {}
+    assert graphs() == {}
 
 
 def _need_card():
@@ -195,19 +185,18 @@ def test_graphed_groups_in_flight_equal_the_eager_loop_on_card(
     wb, chw = _whitebox(name, device="cuda", full_depth=True)
     T, groups = 101, [_group(chw, 4, 101, seed) for seed in (5, 6)]
     with monkeypatch.context() as m:
-        m.setattr(E._EncodeGraph, "engages",
-                  staticmethod(lambda device: False))
+        m.setattr(R, "engages", lambda device: False)
         want = [_launch(wb, g, T)() for g in groups]
-    assert wb.net.encode_graphs == {}
+    assert R.graphs(wb.net.graph) == {}
     _launch(wb, groups[0], T)()  # captures
-    (key, graph), = wb.net.encode_graphs.items()
+    (key, graph), = R.graphs(wb.net.graph).items()
     torch.cuda.set_sync_debug_mode("error")
     try:
         fins = [_launch(wb, g, T) for g in groups]
     finally:
         torch.cuda.set_sync_debug_mode("default")
     got = [f() for f in fins]
-    assert wb.net.encode_graphs == {key: graph}
+    assert R.graphs(wb.net.graph) == {key: graph}
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
 
@@ -222,16 +211,15 @@ def test_param_swap_recaptures_on_card(monkeypatch):
     T, group = 101, _group(chw, 2, 101, 7)
     first = _launch(wb, group, T)()
     old = wb.net.params
-    (key, graph), = wb.net.encode_graphs.items()
+    (key, graph), = R.graphs(wb.net.graph).items()
     wb.net.params = common.params_to(common.init_params(
         R101.build_resnet101(num_classes=16, layers=REDUCED)[1], seed=4),
         "cuda")
     got = _launch(wb, group, T)()
-    (key2, graph2), = wb.net.encode_graphs.items()
+    (key2, graph2), = R.graphs(wb.net.graph).items()
     assert key2 != key and graph2 is not graph
     assert not np.array_equal(got, first)
-    monkeypatch.setattr(E._EncodeGraph, "engages",
-                        staticmethod(lambda device: False))
+    monkeypatch.setattr(R, "engages", lambda device: False)
     want = _launch(wb, group, T)()
     np.testing.assert_array_equal(got, want)
     assert old  # the old parameters lived through the swap

@@ -8,7 +8,8 @@ at one block a stage (full widths) on seeded random weights, the prior's
 net a ResNet-101 at one block a stage.  On the CPU nothing is captured;
 there the staged form (each chunk and the prior's input copied into a
 graph's static input, the graph replayed) runs with an eager stand-in for
-the capture and gives the eager path's bits.
+the capture (``torch_fixtures.eager_replay``) and gives the eager path's
+bits, and a replay counts the gates its capture counted.
 
 The card tests carry the ``cuda`` marker and skip without a card.  This
 file imports neither JAX nor the JAX package:
@@ -18,7 +19,6 @@ file imports neither JAX nor the JAX package:
 
 import gc
 import time
-import types
 import weakref
 
 import numpy as np
@@ -26,10 +26,13 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from torch_fixtures import eager_replay  # noqa: F401
 from xfr_bench import harness as H
+from xfr_torch import replay as R
+from xfr_torch.blackbox import strise as S
 from xfr_torch.blackbox.strise import STRise
-from xfr_torch.ebp import engine as E
 from xfr_torch.utils import profiling
+from xfr_torch.utils.device import precision_scope
 
 
 def _nets(device):
@@ -93,10 +96,9 @@ def test_graphed_chunks_equal_the_eager_chunks(monkeypatch):
     nets = _nets("cuda")
     st, finish = _launch(nets, "cuda")
     graphed = finish(), st.mask_scores.copy()
-    (key,) = nets[("senet50_256", 6)].net.encode_graphs
-    assert key[6] == "encode"
-    monkeypatch.setattr(E._EncodeGraph, "engages",
-                        staticmethod(lambda device: False))
+    (key,) = R.graphs(nets[("senet50_256", 6)].net.graph)
+    assert key.tag == "encode"
+    monkeypatch.setattr(R, "engages", lambda device: False)
     st, finish = _launch(nets, "cuda")
     np.testing.assert_array_equal(finish(), graphed[0])
     np.testing.assert_array_equal(st.mask_scores, graphed[1])
@@ -111,11 +113,10 @@ def test_graphed_prior_equals_the_eager_prior(monkeypatch):
     st, finish = _launch(nets, "cuda")
     finish()
     graphed = st.prior.cpu().numpy()
-    walks = [k for k in nets[("resnetv4_pytorch", None)].net.encode_graphs
-             if k[6][0] == "pooled_ebp"]
+    walks = [k for k in R.graphs(nets[("resnetv4_pytorch", None)].net.graph)
+             if k.tag[0] == "pooled_ebp"]
     assert len(walks) == 1
-    monkeypatch.setattr(E._EncodeGraph, "engages",
-                        staticmethod(lambda device: False))
+    monkeypatch.setattr(R, "engages", lambda device: False)
     st, finish = _launch(nets, "cuda")
     finish()
     np.testing.assert_array_equal(st.prior.cpu().numpy(), graphed)
@@ -125,8 +126,8 @@ def test_cpu_captures_nothing():
     nets = _nets("cpu")
     st, finish = _launch(nets, "cpu", num_masks=64)
     assert np.isfinite(finish()).all()
-    assert nets[("senet50_256", 6)].net.encode_graphs == {}
-    assert nets[("resnetv4_pytorch", None)].net.encode_graphs == {}
+    assert R.graphs(nets[("senet50_256", 6)].net.graph) == {}
+    assert R.graphs(nets[("resnetv4_pytorch", None)].net.graph) == {}
 
 
 def test_a_finished_map_is_freed_with_its_last_reference():
@@ -148,26 +149,11 @@ def test_a_finished_map_is_freed_with_its_last_reference():
         gc.enable()
 
 
-class _EagerGraph:
-    """The capture's stand-in off a card: the same static input and
-    output buffers, ``fn`` run eagerly at each replay."""
-
-    engages = staticmethod(lambda device: True)
-
-    def __init__(self, fn, x):
-        self.fn, self.x = fn, x
-        self.y = fn(x)
-
-    def replay(self):
-        self.y.copy_(self.fn(self.x))
-        return self.y
-
-
 @pytest.mark.parametrize("black_box,k1", [("senet50_256", False),
                                           ("senet50_256", True),
                                           ("resnetv4_pytorch", False)])
-def test_staged_chunks_and_prior_equal_the_eager_path(monkeypatch,
-                                                      black_box, k1):
+def test_staged_chunks_and_prior_equal_the_eager_path(request, black_box,
+                                                      k1):
     """The staged chunks (the materialized blend's NHWC-strided batch, or
     K1's NCHW output, copied into the graph's input of the same strides)
     and the staged prior give the eager path's bits, map after map; the
@@ -185,7 +171,7 @@ def test_staged_chunks_and_prior_equal_the_eager_path(monkeypatch,
                          chunk=16, use_pallas_blend=k1)
     eager = finish(), st.mask_scores.copy(), st.prior.numpy().copy()
 
-    monkeypatch.setattr(E, "_EncodeGraph", _EagerGraph)
+    request.getfixturevalue("eager_replay")
     for _ in range(2):
         st, finish = _launch(nets, "cpu", num_masks=32,
                              black_box=black_box, chunk=16,
@@ -193,39 +179,42 @@ def test_staged_chunks_and_prior_equal_the_eager_path(monkeypatch,
         np.testing.assert_array_equal(finish(), eager[0])
         np.testing.assert_array_equal(st.mask_scores, eager[1])
         np.testing.assert_array_equal(st.prior.numpy(), eager[2])
-    tags = sorted(k[6] if k[6] == "encode" else k[6][0]
+    tags = sorted(k.tag if k.tag == "encode" else k.tag[0]
                   for wb in {id(w): w for w in nets.values()}.values()
-                  for k in wb.net.encode_graphs)
+                  for k in R.graphs(wb.net.graph))
     assert tags == ["encode", "pooled_ebp"]
-    (key,) = [k for k in nets[(black_box, 6)].net.encode_graphs
-              if k[6] == "encode"]
-    assert key[0] == (16, 3, 224, 224) and key[3] == "high"
-    nchw = torch.empty(key[0]).stride()
-    assert (key[5] == nchw) == k1
+    (key,) = [k for k in R.graphs(nets[(black_box, 6)].net.graph)
+              if k.tag == "encode"]
+    with precision_scope("high"):
+        high = R.precision()
+    assert key.shape == (16, 3, 224, 224) and key.precision == high
+    nchw = torch.empty(key.shape).stride()
+    assert (key.stride == nchw) == k1
 
 
-def test_a_replay_counts_its_gates():
-    """A replay counts the squeeze-excite gate multiplies of its batch
-    while a profiler records (the eager forward counts its own), and
-    ``captured_encode`` sets them from the graph: 4 gates a row at one
-    block a stage, none on a ResNet."""
-    g = E._EncodeGraph.__new__(E._EncodeGraph)
-    g.graph, g.y, g.gates = types.SimpleNamespace(replay=lambda: None), 0, 7
-    before = profiling.counters()
-    with profile(activities=[ProfilerActivity.CPU]):
-        g.replay()
-    assert profiling.counters().get("xfr.enc.se_gates", 0) == \
-        before.get("xfr.enc.se_gates", 0) + 7
-    g.replay()
-    assert profiling.counters().get("xfr.enc.se_gates", 0) == \
-        before.get("xfr.enc.se_gates", 0) + 7
-
+def test_a_replay_counts_its_gates(eager_replay):
+    """A replay of the chunk encode counts the squeeze-excite gate
+    multiplies of its batch while a profiler records, as its capture's
+    forward counted them: 4 gates a row at one block a stage, none on a
+    ResNet; nothing without a profiler."""
     nets = _nets("cpu")
-    with pytest.MonkeyPatch.context() as m:
-        m.setattr(E, "_EncodeGraph", _EagerGraph)
-        for name, gates in ((("senet50_256", 6), 4 * 2),
-                            (("resnetv4_pytorch", None), 0)):
-            net = nets[name].net
-            got = net.captured_encode(net.params, (2, 3, 224, 224),
-                                      torch.float32, "high")
-            assert got.gates == gates
+    x = torch.zeros((2, 3, 224, 224))
+    for name, gates in ((("senet50_256", 6), 4 * 2),
+                        (("resnetv4_pytorch", None), 0)):
+        net = nets[name].net
+        e = torch.ones((1, net.embed_dim))
+
+        def score():
+            S._encode_and_score(net.graph, net.encode_tensor, net.params, x,
+                                e, e)
+
+        score()  # captures
+        assert len(R.graphs(net.graph)) == 1
+        before = profiling.counters()
+        with profile(activities=[ProfilerActivity.CPU]):
+            score()
+        assert profiling.counters().get("xfr.enc.se_gates", 0) == \
+            before.get("xfr.enc.se_gates", 0) + gates
+        before = profiling.counters()
+        score()
+        assert profiling.counters() == before

@@ -1,18 +1,23 @@
 """Shared helpers of the xfr_torch parity tests: the port's twin of
 tests/fixtures.make_toy_wbnet, built with the port's GraphBuilder and
-carrying the JAX net's parameters across."""
+carrying the JAX net's parameters across; and ``eager_replay``, which
+runs ``replay.run``'s card path on the CPU."""
 
 import json
 import os
 import subprocess
 import sys
+import types
 
 import numpy as np
+import pytest
 import torch
 
+from xfr_torch import replay as R
 from xfr_torch.ebp.engine import Whitebox, WhiteboxNetwork
 from xfr_torch.graph import GraphBuilder
 from xfr_torch.models.convert import params_from_jax
+from xfr_torch.utils import profiling
 
 # six xdist workers share the host's cores
 torch.set_num_threads(2)
@@ -515,3 +520,30 @@ def mesh_cli_worker(rank, world, init_file, params_npz, data_dir, out):
         "--mask", "2", "5", "--seed", "7", "--mesh", "auto",
         "--method"] + MESH_CLI_METHODS)
     dist.destroy_process_group()
+
+
+class EagerCaptured(R.Captured):
+    """``replay.Captured`` off a card: the warm-up, the capture and the
+    graph's run at each replay run ``fn`` eagerly on the same static
+    buffers.  The capture records its counts and launches, and each
+    replay makes those instead of its own run's, as a graph's replay
+    does."""
+
+    def __init__(self, fn, x):
+        self.fn, self.x = fn, x
+        fn(x)
+        with profiling.recording() as self.counts:
+            self.y = fn(x)
+        self.graph = types.SimpleNamespace(replay=self._run)
+
+    def _run(self):
+        with profiling.recording():
+            self.y.copy_(self.fn(self.x))
+
+
+@pytest.fixture
+def eager_replay(monkeypatch):
+    """``replay.run`` takes its card path on the CPU, each graph an
+    ``EagerCaptured``."""
+    monkeypatch.setattr(R, "engages", lambda device: True)
+    monkeypatch.setattr(R, "Captured", EagerCaptured)

@@ -21,10 +21,10 @@ not built for scoring.  Otherwise the masks are materialized and blended
 in plain PyTorch.  The JAX package's ``lax.scan`` over chunks is a Python
 loop here; every chunk is enqueued on the device stream without a host
 sync until the drain.  On a card each chunk's encode, and the mean-EBP
-prior's walk, replay a CUDA graph captured at first use
-(``WhiteboxNetwork.captured_encode``, ``Whitebox.captured_pooled_ebp``):
-the card's launch queue holds about one eager chunk, so eager host work
-at a map's start (the prior's walk) leaves the card idle.  The built-in
+prior's walk, replay a CUDA graph captured at first use (``replay.run``,
+through ``_encode_and_score`` and ``Whitebox.uniform_pooled_ebp``): the
+card's launch queue holds about one eager chunk, so eager host work at a
+map's start (the prior's walk) leaves the card idle.  The built-in
 scorer's drain reads its map's results after that map's launch alone
 (``_reading_after``), so a pipeline that launches the next map before
 draining this one keeps the card busy through the drain.
@@ -309,33 +309,21 @@ class STRise:
         if not self.mean_ebp_net:
             self.mean_ebp_net = self._get_net("resnetv4_pytorch")
         wb = self.mean_ebp_net
-        from xfr_torch.ebp.engine import _EncodeGraph
         from xfr_torch.models.resnet101 import preprocess_resnet101_batch
         probe = preprocess_resnet101_batch(self._tensor(self.probe)[None])
-        n = wb.net.num_classes()
-
-        def uniform():
-            return torch.full((1, n), 1.0 / n, dtype=torch.float32,
-                              device=self.device)
-
         if wb.convert_saliency_uint8:
             # the uint8-quantized saliency (ebp_version != 6) keeps the
             # host PIL conversion of wb.ebp, then resizes on the device
-            P = wb.ebp(probe, uniform())
+            n = wb.net.num_classes()
+            P = wb.ebp(probe, torch.full((1, n), 1.0 / n, dtype=torch.float32,
+                                         device=self.device))
             self.prior = M.resize_bilinear(self._tensor(P.astype(np.float32)),
                                            (224, 224))
             return
-        # pooled MWP -> gaussian blur -> normalize -> resize, on device
-        if _EncodeGraph.engages(probe.device):
-            # one replay: the walk's host work would leave the card idle
-            # between the previous map's chunks and this map's
-            walk = wb.captured_pooled_ebp(wb.net.params, probe.shape,
-                                          probe.stride())
-            walk.x.copy_(probe)
-            pooled = walk.replay()
-        else:
-            pooled, _ = wb._ebp_pooled_fn()(wb.net.params, probe,
-                                            uniform())
+        # pooled MWP -> gaussian blur -> normalize -> resize, on device; on
+        # a card one replay: the walk's host work would leave the card
+        # idle between the previous map's chunks and this map's
+        pooled = wb.uniform_pooled_ebp(wb.net.params, probe)
         P = M.gaussian_blur(pooled.squeeze().float(), 2.0)
         P = torch.clamp(P, min=0.0)
         P = P / torch.clamp(P.sum(), min=wb.eps)
@@ -558,7 +546,6 @@ class STRise:
         order over the padded mask count (the drain's collective).
         Without a mesh: every chunk, and the identity."""
         from xfr_torch.blackbox.fused_blend import fused_mask_blend_preprocess
-        from xfr_torch.ebp.engine import _EncodeGraph
         from xfr_torch.parallel import mesh as MS
 
         n, bs, mesh = self.num_masks, self.batch_size, self.mesh
@@ -608,23 +595,10 @@ class STRise:
         # masked-probe rows encoded, padding included
         count("xfr.bb.rows_scored", sum(i1 - i0 for i0, i1 in spans))
         rs, gs = [], []
-        captured = None
         with precision_scope(self.score_precision):
             for i0, i1 in spans:
-                x = chunk(i0, i1)
-                if captured is None and _EncodeGraph.engages(x.device):
-                    # one replay a chunk: the launch leaves the chunks
-                    # queued on the card and the host free for the next
-                    # map's prior and draw
-                    captured = wb.net.captured_encode(
-                        params, x.shape, x.dtype, self.score_precision,
-                        x.stride())
-                if captured is None:
-                    r, g = _encode_and_score(graph, enc, params, x, ref_e,
-                                             gal_e)
-                else:
-                    captured.x.copy_(x)
-                    r, g = _score(captured.replay(), ref_e, gal_e)
+                r, g = _encode_and_score(graph, enc, params, chunk(i0, i1),
+                                         ref_e, gal_e)
                 rs.append(r)
                 gs.append(g)
 
@@ -969,12 +943,21 @@ def _l2_similarity(x, y):
 
 
 def _encode_and_score(graph, enc, params, x, ref_e, gal_e):
-    """Shared scorer tail: encode preprocessed blends, L2-normalize (the
-    embedding carries the Multiply(50)), score against both galleries."""
+    """Shared scorer tail: encode preprocessed blends in the caller's
+    precision scope, L2-normalize (the embedding carries the
+    Multiply(50)), score against both galleries.  On a card the encode is
+    one replay of its captured graph (``replay.run``): the launch leaves
+    the chunks queued on the card and the host free for the next map's
+    prior and draw."""
+    from xfr_torch import replay as R
     from xfr_torch.ebp import interpreter as I
 
-    e = I.forward_clean(graph, params, x, keep=(enc,))[enc]
-    return _score(e.reshape(x.shape[0], -1), ref_e, gal_e)
+    def encode(x):
+        e = I.forward_clean(graph, params, x, keep=(enc,))[enc]
+        return e.reshape(x.shape[0], -1)
+
+    e = R.run(encode, x, graph, "encode", I.param_ids(graph, params, enc))
+    return _score(e, ref_e, gal_e)
 
 
 def _score(e, ref_e, gal_e):

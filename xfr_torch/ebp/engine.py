@@ -26,10 +26,9 @@ a device value on the host before its ``finish()``.  Every float32 EBP
 program runs with TF32 off (``precision_scope("high")``, the TPU's
 bf16_3x); ``encode`` and the blend+encode programs allow TF32.  On a
 card, the encode of a monotone blend+encode step is captured once as a
-CUDA graph and replayed for every later step (``_EncodeGraph``), so a
-step costs the host a few launches instead of one a graph node; STRise's
-chunk encodes and its mean-EBP prior's walk replay graphs from the same
-cache (``WhiteboxNetwork.captured``).
+CUDA graph and replayed for every later step (``replay.run``), so a step
+costs the host a few launches instead of one a graph node; so is the
+mean-EBP walk STRise's prior takes (``uniform_pooled_ebp``).
 
 The device mesh (``use_mesh``): the JAX package places one global batch
 over a mesh from one process.  Here every rank of a ``torch.distributed``
@@ -48,12 +47,12 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from xfr_torch import epilogue as EP
+from xfr_torch import replay as R
 from xfr_torch.ebp import interpreter as I
 from xfr_torch.graph import GraphDef
 from xfr_torch.parallel import mesh as MS
 from xfr_torch.utils.device import precision_scope
-from xfr_torch.utils.profiling import count, span
+from xfr_torch.utils.profiling import count, count_replays, span
 
 
 def _percentile_mass_mask(mwp, percentile, batch_dims=0):
@@ -128,56 +127,6 @@ def _threshold_blend(counts, t0, T, orig, inp, rows):
     return (1.0 - mk) * orig[None] + mk * inp[None]
 
 
-class _EncodeGraph:
-    """An encode of the static input buffer ``x`` [bs, C, H, W], captured
-    once as a CUDA graph on a side stream with its own memory pool, after
-    one eager warm-up there (cuDNN's and cuBLAS's handles, plans and
-    workspaces are made outside the capture).  ``replay()`` runs the
-    graph's kernels again on the current stream, on what ``x`` holds then,
-    and returns the static [bs, D] output; the next replay overwrites it,
-    so a caller copies it out on the same stream before handing it on.
-    The graph reads the parameters at the addresses they had when it was
-    captured.  Capturing waits once for the card (``torch.cuda.graph``
-    synchronizes before it begins); a replay waits for nothing.  A replay
-    counts the squeeze-excite gate multiplies it applies (``gates``) and
-    the rows of BatchNorm nodes it applies (``bn_rows``), of them
-    ``bn_rows_fused`` inside a fused epilogue, as
-    ``interpreter.forward_clean`` counts an eager forward's, and the fused
-    epilogues it runs (``epilogues``) in ``fused_epilogue.launches``."""
-
-    gates = bn_rows = bn_rows_fused = epilogues = 0
-
-    @staticmethod
-    def engages(device):
-        """Whether steps on ``device`` replay a graph: on a card only."""
-        return device.type == "cuda"
-
-    def __init__(self, encode, x):
-        with torch.cuda.device(x.device):
-            main = torch.cuda.current_stream()
-            side = torch.cuda.Stream()
-            side.wait_stream(main)
-            with torch.cuda.stream(side):
-                encode(x)
-            main.wait_stream(side)
-            self.x = x
-            self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
-                self.y = encode(x)
-
-    def replay(self):
-        if self.gates:
-            count("xfr.enc.se_gates", self.gates)
-        if self.bn_rows:
-            count("xfr.enc.bn_rows", self.bn_rows)
-        if self.bn_rows_fused:
-            count("xfr.enc.bn_rows_fused", self.bn_rows_fused)
-        self.graph.replay()
-        if self.epilogues:
-            EP.fused_epilogue.launches += self.epilogues
-        return self.y
-
-
 def _interleave_rows(diag):
     """[B, B] -> ([B, 2B] with diag[i, j] at column 2j, the same at column
     2j+1): rows that select each probe's mate (even) or nonmate (odd)
@@ -232,8 +181,6 @@ class WhiteboxNetwork(torch.nn.Module):
         self.name = name
         self._orig_classifier = dict(params).get(classifier_pname)
         self._orig_num_classes = num_classes
-        # captured encodes and walks (captured), keyed by what they baked
-        self.encode_graphs = {}
 
     @property
     def device(self):
@@ -292,72 +239,11 @@ class WhiteboxNetwork(torch.nn.Module):
         out = self.graph.output_id
         return I.forward_clean(self.graph, self.params, x, keep=(out,))[out]
 
-    def captured_encode(self, params, shape, dtype, precision=None,
-                        stride=None):
-        """The encode of a [bs, C, H, W] batch of ``dtype`` under
-        ``params`` in the precision scope ``precision`` (None: TF32
-        allowed), as ``captured``'s graph of the tag "encode", keyed by
-        the addresses of the parameter tensors the encode reads."""
-        graph, enc = self.graph, self.encode_tensor
-        ids = tuple(v.data_ptr() for pn in self._encode_pnames()
-                    for v in params.get(pn, {}).values())
-
-        def encode(x):
-            with precision_scope(precision):
-                e = I.forward_clean(graph, params, x, keep=(enc,))[enc]
-            return e.reshape(x.shape[0], -1)
-
-        got = self.captured("encode", encode, ids, shape, dtype, precision,
-                            stride)
-        plan = I.clean_plan(graph, params, (enc,), got.x)
-        got.gates = graph.n_gates * shape[0]
-        got.bn_rows = plan.n_bn * shape[0]
-        got.bn_rows_fused = plan.n_bn_fused * shape[0]
-        got.epilogues = sum(kind == "chain" for kind, _ in plan.steps)
-        return got
-
-    def captured(self, tag, fn, ids, shape, dtype, precision=None,
-                 stride=None):
-        """``fn`` of a static input of ``shape``, ``dtype`` and the strides
-        ``stride`` (default contiguous; a batch of that layout copies in
-        as a plain memcpy, and the graph runs the kernels ``fn`` runs on
-        it), as an ``_EncodeGraph``: captured on first use, then kept in
-        ``encode_graphs``, keyed by the input's shape, dtype and strides,
-        the device, the precision scope ``fn`` runs in, ``ids`` (the
-        addresses of the parameter tensors it reads) and ``tag`` (what
-        ``fn`` computes).  A key of ``tag`` with other ``ids`` (the
-        parameters were replaced) drops that tag's graphs of the old
-        ones."""
-        stride = None if stride is None else tuple(stride)
-        key = (tuple(shape), dtype, self.device, precision, ids, stride, tag)
-        got = self.encode_graphs.get(key)
-        if got is None:
-            for k in [k for k in self.encode_graphs
-                      if k[6] == tag and k[4] != ids]:
-                del self.encode_graphs[k]
-            x = (torch.zeros(shape, dtype=dtype, device=self.device)
-                 if stride is None else torch.empty_strided(
-                     shape, stride, dtype=dtype, device=self.device).zero_())
-            got = self.encode_graphs[key] = _EncodeGraph(fn, x)
-            count("xfr.eval.graph_captures")
-        return got
-
-    def _encode_pnames(self):
-        """Names of the parameters the encode reads: those of the nodes
-        up to the one that computes the embedding."""
-        names = []
-        for node in self.graph.nodes:
-            if node.pname:
-                names.append(node.pname)
-            if node.out == self.encode_tensor:
-                return names
-        return names
-
     def clear(self):
-        """Drops the captured graphs (``captured``); the
-        reference clears its hooks' state here, of which the functional
-        interpreter keeps none."""
-        self.encode_graphs.clear()
+        """Drops the graphs captured of this net's forwards
+        (``replay.clear``); the reference clears its hooks' state here, of
+        which the functional interpreter keeps none."""
+        R.clear(self.graph)
 
 
 class Whitebox:
@@ -579,13 +465,12 @@ class Whitebox:
 
         return fn
 
-    def captured_pooled_ebp(self, params, shape, stride):
-        """``_ebp_pooled_fn``'s channel-pooled MWP from a uniform prior over
-        the classes, of a [1, C, H, W] float32 input with strides
-        ``stride``, as the net's ``captured`` graph (copy the input into
-        its ``x``, then ``replay()``), keyed by the walk's subtree mode,
-        bias and eps and the addresses of every parameter tensor."""
-        ids = tuple(v.data_ptr() for p in params.values() for v in p.values())
+    def uniform_pooled_ebp(self, params, x):
+        """``_ebp_pooled_fn``'s channel-pooled MWP [1, H, W] of the
+        [1, C, H, W] float32 input ``x`` from a uniform prior over the
+        classes; on a card one replay of its graph (``replay.run``), keyed
+        by the walk's subtree mode, bias and eps and the addresses of
+        every parameter tensor."""
         walk, n = self._ebp_pooled_fn(), self.net.num_classes()
 
         def pooled(x):
@@ -595,10 +480,8 @@ class Whitebox:
 
         tag = ("pooled_ebp", self._ebp_subtree_mode, self._ebp_with_bias,
                self.eps)
-        got = self.net.captured(tag, pooled, ids, shape, torch.float32,
-                                "high", stride)
-        got.bn_rows = self.net.graph.n_bn * shape[0]  # the walk's forward
-        return got
+        ids = (v.data_ptr() for p in params.values() for v in p.values())
+        return R.run(pooled, x, self.net.graph, tag, ids)
 
     def _contrastive_pair_fn(self, kinds):
         """(params, x, Pns [2,B,K], percentile) -> list of [B,H,W] maps,
@@ -1757,7 +1640,7 @@ class Whitebox:
     # package's lax.scan over (map, chunk-start) steps is a Python loop
     # here; each step encodes the same [bs, C, H, W] batch as there,
     # rows past T included, into one preallocated output.  On a card the
-    # monotone steps replay one captured encode (``captured_encode``).
+    # monotone steps replay one captured encode (``replay.run``).
 
     def _upload(self, arr):
         """A host array as a tensor on the net's device.  On the card it
@@ -1810,9 +1693,10 @@ class Whitebox:
         On a card the blend is copied into the static input of the
         captured encode of a [bs, C, H, W] batch, the graph is replayed and
         its static output copied into the step's block, all on the current
-        stream: the next step, or the next launch while this one's
-        ``finish()`` has not read ``out``, overwrites the static buffers
-        only after that copy.  Elsewhere each step's blend is encoded
+        stream (``replay.run``): the next step, or the next launch while
+        this one's ``finish()`` has not read ``out``, overwrites the static
+        buffers only after that copy.  Each replay counts a step in
+        ``xfr.eval.graph_replays``.  Elsewhere each step's blend is encoded
         eagerly.
 
         local(params, origs [P,C,H,W], inps, counts [M, H*W] uint8,
@@ -1824,26 +1708,23 @@ class Whitebox:
             c_all = counts.to(torch.int32)
             rows = torch.arange(bs, dtype=torch.int32,
                                 device=counts.device)[:, None]
-            captured = None
-            if _EncodeGraph.engages(counts.device):
-                captured = self.net.captured_encode(
-                    params, (bs,) + tuple(origs.shape[1:]), origs.dtype)
+            ids = tuple(I.param_ids(graph, params, enc))
+
+            def encode(x):
+                count_replays("xfr.eval.graph_replays")
+                e = I.forward_clean(graph, params, x, keep=(enc,))[enc]
+                return e.reshape(x.shape[0], -1)
+
             out = None
-            for i, (m, t0, p) in enumerate(steps):
-                with span("xfr.eval.blend"):
-                    blends = _threshold_blend(c_all[m][None], t0, T,
-                                              origs[p], inps[p], rows)
-                if captured is None:
-                    with precision_scope(None):
-                        e = I.forward_clean(graph, params, blends,
-                                            keep=(enc,))[enc].reshape(bs, -1)
-                else:
-                    captured.x.copy_(blends)
-                    e = captured.replay()
-                    count("xfr.eval.graph_replays")
-                if out is None:
-                    out = e.new_empty((len(steps) * bs, e.shape[1]))
-                out[i * bs:(i + 1) * bs] = e
+            with precision_scope(None):
+                for i, (m, t0, p) in enumerate(steps):
+                    with span("xfr.eval.blend"):
+                        blends = _threshold_blend(c_all[m][None], t0, T,
+                                                  origs[p], inps[p], rows)
+                    e = R.run(encode, blends, graph, "eval_step", ids)
+                    if out is None:
+                        out = e.new_empty((len(steps) * bs, e.shape[1]))
+                    out[i * bs:(i + 1) * bs] = e
             return out
 
         return local

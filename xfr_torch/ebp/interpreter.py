@@ -32,6 +32,7 @@ row: ``ebp`` adds the axis and strips it again.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Dict, Optional, Sequence
 
@@ -77,6 +78,27 @@ def clean_plan(graph: GraphDef, params, keep: Sequence[int], x):
     chains fused where ``epilogue.engages(x)``, else none."""
     return EP.plan(graph, tuple(keep), EP.biased(graph, params),
                    EP.engages(x))
+
+
+@functools.lru_cache(maxsize=64)
+def _pnames_upto(graph, t):
+    """Parameter names of the nodes of ``graph`` up to the one that
+    computes the tensor ``t``."""
+    names = []
+    for node in graph.nodes:
+        if node.pname:
+            names.append(node.pname)
+        if node.out == t:
+            break
+    return tuple(names)
+
+
+def param_ids(graph, params, upto):
+    """The addresses of the parameter tensors a forward of ``graph`` up to
+    the tensor ``upto`` reads, as a generator (``replay.run`` reads them
+    on a card only)."""
+    return (v.data_ptr() for pn in _pnames_upto(graph, upto)
+            for v in params.get(pn, {}).values())
 
 
 @torch.no_grad()

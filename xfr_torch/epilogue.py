@@ -30,6 +30,7 @@ from typing import Optional, Tuple
 import torch
 
 from xfr_torch import ops as O
+from xfr_torch.utils.profiling import launched
 
 # a stage's place in a chain; a chain's stages come in this order
 _BIAS, _BN, _GATE, _ADD, _RELU = range(5)
@@ -294,11 +295,11 @@ def fused_epilogue(x, *, bias=None, bn=None, eps=1e-5, gate=None,
     NCHW or channels_last and the residual is laid out as ``x``; the
     output is too, as the eager chain lays it out then.
 
-    A CUDA float32 ``x`` launches the Hopper kernel on the current stream
-    (counted in ``fused_epilogue.launches`` when it runs now: a launch
-    into a CUDA graph being captured counts at each replay of the graph,
-    ``engine._EncodeGraph``).  A CPU ``x`` runs the plain version.
-    Anything else raises."""
+    A CUDA float32 ``x`` launches the Hopper kernel on the current stream,
+    counted in ``fused_epilogue.launches`` (``profiling.launched``: a
+    launch into a captured CUDA graph counts at each replay of the graph,
+    ``replay.Captured``).  A CPU ``x`` runs the plain version.  Anything
+    else raises."""
     nhwc = _check(x, bias, bn, gate, residual)
     if x.device.type == "cpu":
         return fused_epilogue_reference(
@@ -332,8 +333,7 @@ def fused_epilogue(x, *, bias=None, bn=None, eps=1e-5, gate=None,
         if err != 0:
             raise RuntimeError(f"fused_epilogue kernel launch failed: CUDA "
                                f"error {err}")
-        if not torch.cuda.is_current_stream_capturing():
-            fused_epilogue.launches += 1
+        launched(fused_epilogue)
     return out
 
 

@@ -14,6 +14,11 @@ in the span that encloses it on the same thread.  While they are live,
 ``span_seconds()`` totals each span's host seconds and ``counters()``
 each counter.  With no profiler recording, each costs one check: ``span``
 returns one shared null context and ``count`` returns at once.
+
+A captured CUDA graph runs no Python when it is replayed, so inside
+``recording()`` (around a capture, ``replay.Captured``) ``count`` and
+``launched`` record what they would add, and ``emit`` adds it at each
+replay.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from torch._C._autograd import _profiler_enabled
 _NULL = contextlib.nullcontext()
 _counters = {}
 _span_seconds = {}
+_recording = None  # inside recording(): {counter name or wrapper: n}
 
 
 class Timer:
@@ -104,9 +110,51 @@ def span(name):
 
 
 def count(name, n=1):
-    """Add ``n`` to the counter ``name`` while a torch.profiler records."""
-    if _profiler_enabled():
+    """Add ``n`` to the counter ``name`` while a torch.profiler records;
+    inside ``recording()``, record it instead."""
+    if _recording is not None:
+        _recording[name] = _recording.get(name, 0) + n
+    elif _profiler_enabled():
         _counters[name] = _counters.get(name, 0) + n
+
+
+def count_replays(name):
+    """Add one to the counter ``name`` at each replay of the graph being
+    captured (``recording()``); outside a capture, nothing."""
+    if _recording is not None:
+        _recording[name] = _recording.get(name, 0) + 1
+
+
+def launched(fn):
+    """Add one to ``fn.launches``, the launch counter of the kernel
+    wrapper ``fn``; inside ``recording()``, record it instead."""
+    if _recording is not None:
+        _recording[fn] = _recording.get(fn, 0) + 1
+    else:
+        fn.launches += 1
+
+
+@contextlib.contextmanager
+def recording():
+    """Record the block's ``count`` and ``launched`` calls instead of
+    making them; yields their totals, {counter name or wrapper: n}, which
+    ``emit`` makes."""
+    global _recording
+    outer, _recording = _recording, {}
+    try:
+        yield _recording
+    finally:
+        _recording = outer
+
+
+def emit(recorded):
+    """Make the calls ``recording()`` recorded: one replay's counts (while
+    a torch.profiler records) and launches."""
+    for what, n in recorded.items():
+        if isinstance(what, str):
+            count(what, n)
+        else:
+            what.launches += n
 
 
 def counters():
