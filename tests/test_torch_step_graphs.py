@@ -9,11 +9,19 @@ addresses and empties on a device move and on ``clear()``.  On a card (marker ``
 one) the graphed steps of two groups in flight equal the eager loop's bit
 for bit at full depth, and a parameter swap captures again.
 
+Each launch form's ``finish()`` reads after its own launch's end where
+that end is recorded (a card without a mesh; stood in for on the CPU),
+and on the current stream on the CPU and under a mesh, with the same
+embeddings and the reads counted; on a card the first of two groups in
+flight is read while the current stream still runs the second.
+
 This file imports neither JAX nor the JAX package, so on a machine with a
 card it runs without the repository's JAX test setup:
 
     python -m pytest tests/test_torch_step_graphs.py --noconftest -q
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -104,7 +112,8 @@ def test_staged_steps_equal_the_eager_loop(name, request):
     assert counted == {"xfr.eval.steps": 2 * 12,
                        "xfr.eval.rows_encoded": 2 * 48,
                        "xfr.eval.rows_needed": 2 * 40,
-                       "xfr.eval.graph_replays": 2 * 12, **bn}
+                       "xfr.eval.graph_replays": 2 * 12,
+                       "xfr.eval.reads": 2, **bn}
     assert len(R.graphs(wb.net.graph)) == 1
 
 
@@ -116,7 +125,7 @@ def test_cpu_steps_stay_eager_and_count_no_replays():
     out, counted = _counted(lambda: _launch(wb, _group(chw, 2, 5, 2), 5)())
     assert out.shape == (2, 5, 256) and np.isfinite(out).all()
     assert counted == {"xfr.eval.steps": 4, "xfr.eval.rows_encoded": 16,
-                       "xfr.eval.rows_needed": 10}
+                       "xfr.eval.rows_needed": 10, "xfr.eval.reads": 1}
     assert R.graphs(wb.net.graph) == {}
 
 
@@ -166,6 +175,103 @@ def test_graph_cache_follows_params_and_device(eager_replay, monkeypatch):
     assert len(graphs()) == 1
     net.clear()
     assert graphs() == {}
+
+
+LAUNCH_FORMS = ["counts_multi", "counts", "multi_pair", "bits"]
+
+
+def _launch_form(form, wb, group, T):
+    """``form``'s blend+encode launch of ``group``: the enter-count
+    planes of one pair (several maps, or the first alone), of a pair
+    list, or as the first map's bit-packed masks, made non-monotone."""
+    orig, inp, counts = group
+    if form == "counts_multi":
+        return wb.launch_blend_embeddings_counts_multi(orig, inp, counts, T)
+    if form == "counts":
+        return wb.launch_blend_embeddings_counts(orig, inp, counts[0], T)
+    if form == "multi_pair":
+        return wb.launch_blend_embeddings_counts_multi_pair(
+            [orig], [inp], counts, np.zeros(len(counts), np.int32), T)
+    masks = counts[0][None] >= T - np.arange(T)[:, None]
+    masks[0, 0], masks[1, 0] = True, False  # pixel 0 leaves mask 1
+    return wb.launch_blend_embeddings(
+        orig, inp, masks.reshape((T,) + orig.shape[1:]))
+
+
+def _reads_recorded(monkeypatch, ends):
+    """The list of every event the patched ``_reading_after`` is given;
+    ``ends`` collects the events the patched ``_launch_end`` hands out
+    (stand-ins for a card's), or is None where it must not be called."""
+    reads = []
+
+    def launch_end(device):
+        assert ends is not None, "a meshed launch records no end"
+        ends.append(object())
+        return ends[-1]
+
+    @contextlib.contextmanager
+    def reading_after(event, device):
+        assert device == torch.device("cpu")
+        reads.append(event)
+        yield
+
+    monkeypatch.setattr(E, "_launch_end", launch_end)
+    monkeypatch.setattr(E, "_reading_after", reading_after)
+    return reads
+
+
+@pytest.mark.parametrize("form", LAUNCH_FORMS)
+def test_each_read_waits_for_its_own_launch_end(form, monkeypatch):
+    """Two launches, then both finishes: on the CPU each read runs on the
+    current stream and counts in ``xfr.eval.reads`` alone; where
+    ``_launch_end`` gives an event (a card without a mesh, stood in for
+    here), each finish reads inside ``_reading_after`` of its own
+    launch's event and counts it in ``xfr.eval.reads_after_own_end`` too.
+    The embeddings are the same."""
+    wb, chw = _whitebox("lightcnn29")
+    wb.blend_batch = wb.batch_size = 4
+    groups = [_group(chw, 2, 5, seed) for seed in (8, 9)]
+
+    def both():
+        fins = [_launch_form(form, wb, g, 5) for g in groups]
+        return [f() for f in fins]
+
+    want, counted = _counted(both)
+    assert ("xfr.eval.steps" in counted) == (form != "bits")
+    assert counted["xfr.eval.reads"] == 2
+    assert "xfr.eval.reads_after_own_end" not in counted
+    ends = []
+    reads = _reads_recorded(monkeypatch, ends)
+    got, counted = _counted(both)
+    assert len(ends) == 2 and reads == ends
+    assert (counted["xfr.eval.reads"],
+            counted["xfr.eval.reads_after_own_end"]) == (2, 2)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("form", ["counts_multi", "counts", "bits"])
+def test_a_meshed_launch_reads_on_the_current_stream(form, monkeypatch):
+    """Under a mesh (one rank, stood in for) the all-gather belongs to
+    ``finish()``: the launch records no end, the read runs on the current
+    stream and counts in ``xfr.eval.reads`` alone, and the embeddings are
+    the unmeshed ones."""
+    wb, chw = _whitebox("lightcnn29")
+    wb.blend_batch = wb.batch_size = 4
+    group = _group(chw, 2, 5, 10)
+    want = _launch_form(form, wb, group, 5)()
+    monkeypatch.setattr(E.MS, "dp_size", lambda mesh, axis="dp": 1)
+    monkeypatch.setattr(E.MS, "local_rows", lambda mesh, n, axis="dp":
+                        (0, n))
+    monkeypatch.setattr(E.MS, "gather_rows", lambda mesh, x, n=None,
+                        axis="dp": x if n is None else x[:n])
+    wb.mesh = object()
+    reads = _reads_recorded(monkeypatch, None)
+    got, counted = _counted(lambda: _launch_form(form, wb, group, 5)())
+    assert reads == [None]
+    assert counted["xfr.eval.reads"] == 1
+    assert "xfr.eval.reads_after_own_end" not in counted
+    np.testing.assert_array_equal(got, want)
 
 
 def _need_card():
@@ -223,3 +329,31 @@ def test_param_swap_recaptures_on_card(monkeypatch):
     want = _launch(wb, group, T)()
     np.testing.assert_array_equal(got, want)
     assert old  # the old parameters lived through the swap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", MATCHERS)
+def test_a_finish_reads_after_its_own_group_alone_on_card(name,
+                                                          monkeypatch):
+    """Full depth at the eval's shapes: two groups launched back to back,
+    then about a second of work queued behind the second.  The first
+    group's ``finish()`` returns while the current stream still runs, so
+    its read waited for its own group alone; both groups give the eager
+    loop's embeddings bit for bit."""
+    _need_card()
+    wb, chw = _whitebox(name, device="cuda", full_depth=True)
+    T, groups = 101, [_group(chw, 4, 101, seed) for seed in (11, 12)]
+    with monkeypatch.context() as m:
+        m.setattr(R, "engages", lambda device: False)
+        want = [_launch(wb, g, T)() for g in groups]
+    _launch(wb, groups[0], T)()  # captures
+    torch.cuda.synchronize()
+    fins = [_launch(wb, g, T) for g in groups]
+    torch.cuda._sleep(int(2e9))
+    first = fins[0]()
+    queued_still_runs = not torch.cuda.current_stream().query()
+    second = fins[1]()
+    torch.cuda.synchronize()
+    assert queued_still_runs
+    np.testing.assert_array_equal(first, want[0])
+    np.testing.assert_array_equal(second, want[1])

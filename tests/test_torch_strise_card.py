@@ -130,6 +130,25 @@ def test_cpu_captures_nothing():
     assert R.graphs(nets[("resnetv4_pytorch", None)].net.graph) == {}
 
 
+def test_strise_reads_through_the_shared_helpers():
+    """STRise's drain and the eval's finish read after a launch's end
+    through one pair of helpers in ``utils.device``; STRise's module still
+    gives both under their names (the benchmark's SENet cell imports them
+    from there).  On the CPU no end is recorded and the block runs as it
+    is."""
+    from xfr_torch.blackbox.strise import _launch_end, _reading_after
+    from xfr_torch.ebp import engine as E
+    from xfr_torch.utils import device as D
+
+    assert _launch_end is D._launch_end is E._launch_end
+    assert _reading_after is D._reading_after is E._reading_after
+    cpu = torch.device("cpu")
+    assert _launch_end(cpu) is None
+    with _reading_after(None, cpu):
+        x = torch.arange(3.0).cpu()
+    assert x.tolist() == [0.0, 1.0, 2.0]
+
+
 def test_a_finished_map_is_freed_with_its_last_reference():
     """A drained STRise holds no reference cycle: with Python's cycle
     collector off, dropping the (STRise, finish) pair frees it and its

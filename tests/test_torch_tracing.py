@@ -163,6 +163,7 @@ def test_eval_spans_nest_and_rows_are_counted(wb):
     assert got == {"xfr.eval.steps": 4 * maps,
                    "xfr.eval.rows_encoded": 128 * maps,
                    "xfr.eval.rows_needed": 101 * maps,
+                   "xfr.eval.reads": 2,
                    "xfr.enc.bn_rows": bn, "xfr.enc.bn_rows_fused": bn}
     assert spans["xfr.eval.plane"] == [[]] * 3
     assert spans["xfr.eval.encode"] == [[]] * 2

@@ -35,7 +35,6 @@ matplotlib, imported inside the methods; it draws on the host.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import sys
 
@@ -43,8 +42,8 @@ import numpy as np
 import torch
 
 from xfr_torch.blackbox import masks as M
-from xfr_torch.utils.device import precision_scope, resolve_device, \
-    to_device
+from xfr_torch.utils.device import _launch_end, _reading_after, \
+    precision_scope, resolve_device, to_device
 from xfr_torch.utils.image import center_crop
 from xfr_torch.utils.profiling import count, span
 
@@ -68,31 +67,6 @@ def _matcher_input(black_box):
     from xfr_torch.models.resnet101 import mean_rgb, \
         preprocess_resnet101_batch
     return preprocess_resnet101_batch, mean_rgb
-
-
-def _launch_end(device):
-    """An event recorded now on ``device``'s current stream (a card), else
-    None."""
-    if device.type != "cuda":
-        return None
-    event = torch.cuda.Event()
-    event.record(torch.cuda.current_stream(device))
-    return event
-
-
-@contextlib.contextmanager
-def _reading_after(event, device):
-    """Device-to-host reads in the block wait for ``event`` (the end of a
-    launch) alone, not for a later launch already queued behind it: on a
-    card they run on a side stream made to wait for the event; with no
-    event they run as they are."""
-    if event is None:
-        yield
-        return
-    side = torch.cuda.Stream(device)
-    side.wait_event(event)
-    with torch.cuda.stream(side):
-        yield
 
 
 def print_flush(s, file=sys.stdout, flush=True):

@@ -28,7 +28,11 @@ bf16_3x); ``encode`` and the blend+encode programs allow TF32.  On a
 card, the encode of a monotone blend+encode step is captured once as a
 CUDA graph and replayed for every later step (``replay.run``), so a step
 costs the host a few launches instead of one a graph node; so is the
-mean-EBP walk STRise's prior takes (``uniform_pooled_ebp``).
+mean-EBP walk STRise's prior takes (``uniform_pooled_ebp``).  There,
+without a mesh, a blend+encode ``finish()`` reads its launch's output
+after that launch's end alone (``_finish_embeds``), so a caller that
+launches the next group before finishing this one keeps the card busy
+through the read.
 
 The device mesh (``use_mesh``): the JAX package places one global batch
 over a mesh from one process.  Here every rank of a ``torch.distributed``
@@ -51,7 +55,8 @@ from xfr_torch import replay as R
 from xfr_torch.ebp import interpreter as I
 from xfr_torch.graph import GraphDef
 from xfr_torch.parallel import mesh as MS
-from xfr_torch.utils.device import precision_scope
+from xfr_torch.utils.device import _launch_end, _reading_after, \
+    precision_scope
 from xfr_torch.utils.profiling import count, count_replays, span
 
 
@@ -1756,12 +1761,9 @@ class Whitebox:
                 self._blend_encode_mono_multi_local(T, bs)(
                     self.net.params, origs, inps, self._upload(counts_mat),
                     steps), n=n * bs)
-
-        def finish():
-            out = gather().reshape(M, nchunk * bs, -1)[:, :T]
-            return self._finish_embeds(out, norm)()
-
-        return finish
+        return self._finish_embeds(
+            lambda: gather().reshape(M, nchunk * bs, -1)[:, :T], norm,
+            self._eval_launch_end())
 
     def launch_blend_embeddings_counts_multi_pair(
             self, orig_imTs, inpaint_imTs, counts_mat, pair_idx, T,
@@ -1792,14 +1794,30 @@ class Whitebox:
         return self._launch_counts_steps(origs, inps, counts_mat, pair_idx,
                                          T, norm)
 
-    @staticmethod
-    def _finish_embeds(out, norm):
-        """finish() of a blend+encode launch: the one host read, then the
-        unit norm along the last axis in numpy (float32)."""
+    def _eval_launch_end(self):
+        """The end of a blend+encode launch, recorded as it is enqueued,
+        for its ``finish()`` to read after (``_launch_end``): on a card
+        without a mesh, else None.  Under a mesh the read follows the
+        finish's all-gather on the current stream."""
+        return None if self.mesh is not None else _launch_end(self.device)
+
+    def _finish_embeds(self, out, norm, end):
+        """finish() of a blend+encode launch: ``out()`` gives the launch's
+        [..., D] embeddings on the device and the one host read takes
+        them, then the unit norm along the last axis in numpy (float32).
+        With ``end`` (``_eval_launch_end``) both run on a side stream that
+        waits for that event alone (``_reading_after``), so a launch
+        queued behind this one does not hold the read back.  Counts every
+        finish in ``xfr.eval.reads`` and those after their own launch's
+        end in ``xfr.eval.reads_after_own_end``."""
 
         def finish():
             with span("xfr.eval.finish"):
-                embeds = out.cpu().numpy()
+                count("xfr.eval.reads")
+                if end is not None:
+                    count("xfr.eval.reads_after_own_end")
+                with _reading_after(end, self.device):
+                    embeds = out().cpu().numpy()
                 if norm:
                     embeds = embeds / np.linalg.norm(embeds, axis=-1,
                                                      keepdims=True)
@@ -1844,7 +1862,7 @@ class Whitebox:
         gather = self._gathered(torch.cat([
             fn(self.net.params, orig, inp, bits_d[i:i + step])
             for i in range(0, bits_d.shape[0], step)]), n=T)
-        return lambda: self._finish_embeds(gather(), norm)()
+        return self._finish_embeds(gather, norm, self._eval_launch_end())
 
     def launch_blend_embeddings_counts(self, orig_imT, inpaint_imT,
                                        counts, T, norm=True):

@@ -1,4 +1,5 @@
-"""Device placement and float32 precision scopes.
+"""Device placement, float32 precision scopes, and reads that wait for
+one launch's end (``_launch_end``, ``_reading_after``).
 
 Every entry point of the port takes an explicit ``device`` that defaults
 to ``"cuda"``.  A CUDA device without a card raises: the port never falls
@@ -38,6 +39,31 @@ def to_device(t, device):
     if t.device.type == "cpu" and device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+def _launch_end(device):
+    """An event recorded now on ``device``'s current stream (a card), else
+    None."""
+    if device.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
+@contextlib.contextmanager
+def _reading_after(event, device):
+    """Device-to-host reads in the block wait for ``event`` (the end of a
+    launch) alone, not for a later launch already queued behind it: on a
+    card they run on a side stream made to wait for the event; with no
+    event they run as they are."""
+    if event is None:
+        yield
+        return
+    side = torch.cuda.Stream(device)
+    side.wait_event(event)
+    with torch.cuda.stream(side):
+        yield
 
 
 def card_name_and_power_limit():
