@@ -3,8 +3,9 @@ seeded weights and draws, the measured window, the trace and its
 reduction, and the comparison's verdict.
 
 A cell is a configuration (``configs/<name>.json``, its program adapter
-``configs/<name>.py`` and its plain reference ``reference/<name>.py``)
-under a traffic mix (``traffic/<name>.json``), whose ``kind`` names the
+``configs/<name>.py`` and its plain reference ``reference/<name>.py``,
+whose ``calibrate``, where it has one, ``weights`` applies; its images
+are drawn at ``image_hw``) under a traffic mix (``traffic/<name>.json``), whose ``kind`` names the
 general driver in ``kinds/<kind>.py``; each per-layer metric is a reader
 ``metrics/<name>.py``; each cell's correctness limits are
 ``limits/<workload>.json``.  Adding any of them adds a file and an entry
@@ -145,6 +146,41 @@ def make_weights(shapes, seed, device):
         out.setdefault(name, {})[key] = v.clone()
         at += n
     return out
+
+
+def image_hw(cfg):
+    """(H, W) of the images the traffic draws and STRise masks: the
+    configuration's optional ``image_hw``, by default its input's; the
+    reference's ``preprocess`` takes them to ``input_chw``."""
+    return tuple(cfg.get("image_hw", cfg["input_chw"][1:]))
+
+
+def images(seed, device, tag, n, hw):
+    """``n`` uint8 RGB images [n, H, W, 3] on ``device``, drawn from the
+    seed under ``tag``."""
+    import torch
+
+    return torch.randint(0, 256, (n,) + tuple(hw) + (3,),
+                         generator=generator(seed, device, tag),
+                         device=device, dtype=torch.uint8)
+
+
+def weights(cfg, seed, device):
+    """The configuration's weights, the same for program and reference:
+    the one seam through which every kind gets its matcher's weights.
+    ``make_weights`` of the reference's ``param_shapes``, then, where the
+    reference defines ``calibrate(params, cfg, images)``, that call, which
+    changes ``params`` in place, on ``calibration_images`` uint8 images
+    drawn from the seed under "gates" at ``image_hw``.  A configuration
+    whose plain random init does not compute as a trained net does
+    (SENet's saturated gates, BatchNorm statistics that do not fit the
+    data) sets that right in its ``calibrate``."""
+    R = cfg["reference"]
+    params = make_weights(R.param_shapes(cfg), seed, device)
+    if hasattr(R, "calibrate"):
+        R.calibrate(params, cfg, images(
+            seed, device, "gates", cfg["calibration_images"], image_hw(cfg)))
+    return params
 
 
 def same_template(shapes, params):

@@ -97,8 +97,7 @@ class Cell:
 
         self.protocol = protocol
         self.cfg, self.tr, self.seed, self.ranges = cfg, tr, seed, ranges
-        params = H.make_weights(cfg["reference"].param_shapes(cfg), seed,
-                                device)
+        params = H.weights(cfg, seed, device)
         self.wb = cfg["program"].program(cfg, params, device)
         origs, twins, gal = pairs(cfg, tr, seed, device)
         k = tr["gallery_copies"]
@@ -185,7 +184,7 @@ def reference_outputs(cfg, tr, seed, device, units, dtype=torch.float32):
     from xfr_bench.reference.strise import precision
 
     R = cfg["reference"]
-    params = H.make_weights(R.param_shapes(cfg), seed, device)
+    params = H.weights(cfg, seed, device)
     params = {n: {k: v.to(dtype) for k, v in p.items()}
               for n, p in params.items()}
     origs, twins, gal = pairs(cfg, tr, seed, device)

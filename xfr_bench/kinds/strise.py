@@ -8,15 +8,14 @@ one job's probes share them), ``probe_pool`` (distinct probes drawn; the
 window takes them in turn), ``check_units`` (maps compared with the
 reference after the window), ``trace_units`` (maps in a traced window).
 
-Every image is uint8 RGB at the configuration's size, drawn on the device
-from the run's seed.  A unit's mask seed is derived from the run's seed
-and the unit's index.
+Every image is uint8 RGB at the configuration's ``image_hw``
+(``harness.image_hw``), drawn on the device from the run's seed.  A
+unit's mask seed is derived from the run's seed and the unit's index.
 """
 
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from xfr_bench import harness as H
 
@@ -38,12 +37,6 @@ def per_unit(tr):
     return 1
 
 
-def _images(seed, device, tag, n, hw):
-    g = H.generator(seed, device, tag)
-    return torch.randint(0, 256, (n,) + tuple(hw) + (3,), generator=g,
-                         device=device, dtype=torch.uint8)
-
-
 class Cell:
     """The program's side of one run: set-up in the constructor, then
     ``launch``/``drain`` per unit, then ``release``."""
@@ -54,21 +47,20 @@ class Cell:
         self.cfg, self.tr, self.seed, self.device = cfg, tr, seed, device
         self.ranges = ranges
         self._STRise = STRise
-        hw = cfg["input_chw"][1:]
-        self.params = H.make_weights(cfg["reference"].param_shapes(cfg),
-                                     seed, device)
+        hw = H.image_hw(cfg)
+        self.params = H.weights(cfg, seed, device)
         wb = cfg["program"].program(cfg, self.params, device)
         self.net_dict = {("resnetv6_pytorch", 6): wb,
                          ("resnetv4_pytorch", None): wb}
         self.wb = wb
-        self.probes = _images(seed, device, "probes", tr["probe_pool"],
-                              hw).cpu().numpy()
-        self.refs = list(_images(seed, device, "refs", tr["refs"], hw)
+        self.probes = H.images(seed, device, "probes", tr["probe_pool"],
+                               hw).cpu().numpy()
+        self.refs = list(H.images(seed, device, "refs", tr["refs"], hw)
                          .cpu().numpy())
-        self.gallery = list(_images(seed, device, "gallery", tr["gallery"],
-                                    hw).cpu().numpy())
+        self.gallery = list(H.images(seed, device, "gallery",
+                                     tr["gallery"], hw).cpu().numpy())
         self.out = {}
-        warm = _images(seed, device, "warm", 1, hw).cpu().numpy()[0]
+        warm = H.images(seed, device, "warm", 1, hw).cpu().numpy()[0]
         self._launch(warm, H.derive(seed, "warm-masks"))[1]()
 
     def _launch(self, probe, mask_seed):
@@ -125,12 +117,11 @@ def reference_outputs(cfg, tr, seed, device, units, lower=False):
     precision lower (the control, put in the program's place)."""
     from xfr_bench.reference import strise as RS
 
-    params = H.make_weights(cfg["reference"].param_shapes(cfg), seed,
-                            device)
-    hw = cfg["input_chw"][1:]
-    probes = _images(seed, device, "probes", tr["probe_pool"], hw)
-    refs = _images(seed, device, "refs", tr["refs"], hw)
-    gallery = _images(seed, device, "gallery", tr["gallery"], hw)
+    params = H.weights(cfg, seed, device)
+    hw = H.image_hw(cfg)
+    probes = H.images(seed, device, "probes", tr["probe_pool"], hw)
+    refs = H.images(seed, device, "refs", tr["refs"], hw)
+    gallery = H.images(seed, device, "gallery", tr["gallery"], hw)
     spec = {k: tr[k] for k in ("num_masks", "mask_scale", "mask_elements",
                                "blur_fill_pct")}
     out = {}

@@ -6,11 +6,13 @@ the configuration's ``proxy`` names.
 
 Traffic keys as ``kinds/strise.py``'s, and ``mate_noise``: the probes
 and the references are one subject, as one job's probes and their mates
-are (``scene``).  The matcher's weights come from
-the run's seed (then its squeeze-excite gates are calibrated on
-``gate_images`` images of the seed, ``reference.calibrate_gates``), the
-proxy's from a seed derived under "proxy"; program and reference are
-handed the same weights.
+are (``scene``).  Images are drawn at the configuration's ``image_hw``
+(``harness.image_hw``), which STRise masks and the matcher's reference
+preprocesses to its input.  The matcher's weights come from the run's
+seed through ``harness.weights``, which applies the configuration's own
+calibration where its reference has one; the proxy's come from a seed
+derived under "proxy", uncalibrated; program and reference are handed
+the same weights.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch
 
 from xfr_bench import harness as H
 from xfr_bench.kinds import strise as S
-from xfr_bench.kinds.strise import SCORE, _images, compare  # noqa: F401
+from xfr_bench.kinds.strise import SCORE, compare  # noqa: F401
 
 FAMILY = "bb"
 RATE = "bb_maps_per_s"
@@ -35,11 +37,7 @@ per_unit = S.per_unit
 def weights(cfg, seed, device):
     """(the matcher's params, the proxy's configuration, the proxy's
     params), the same for program and reference."""
-    R = cfg["reference"]
-    params = H.make_weights(R.param_shapes(cfg), seed, device)
-    R.calibrate_gates(params, cfg, _images(
-        seed, device, "gates", cfg["gate_images"], cfg["input_chw"][1:]),
-        cfg["se_logit_std"])
+    params = H.weights(cfg, seed, device)
     pcfg = H.config(cfg["proxy"]["config"])
     pcfg["program_name"] = cfg["proxy"]["program_name"]
     pparams = H.make_weights(pcfg["reference"].param_shapes(pcfg),
@@ -53,10 +51,10 @@ def scene(seed, device, tr, hw):
     probe are one subject: a base image drawn from the seed plus uniform
     noise of up to ``mate_noise`` a pixel each; the gallery is other
     images.  (With references unrelated to the probe, a random-weight
-    SENet scores no mask positively in about one map in nine, and no map
-    can be formed.)"""
+    matcher scores no mask positively in about one map in nine, as
+    SENet-50-256 did, and no map can be formed.)"""
     hw = tuple(hw)
-    base = _images(seed, device, "subject", 1, hw).int()
+    base = H.images(seed, device, "subject", 1, hw).int()
     g = H.generator(seed, device, "mates")
     a = tr["mate_noise"]
 
@@ -66,7 +64,7 @@ def scene(seed, device, tr, hw):
         return (base + noise).clamp(0, 255).to(torch.uint8)
 
     probes, refs = mates(tr["probe_pool"]), mates(tr["refs"])
-    gallery = _images(seed, device, "gallery", tr["gallery"], hw)
+    gallery = H.images(seed, device, "gallery", tr["gallery"], hw)
     return probes, refs, gallery, mates(1)[0]
 
 
@@ -82,7 +80,7 @@ class Cell(S.Cell):
         self.ranges = ranges
         self._STRise = STRise
         self._launch_end, self._reading_after = _launch_end, _reading_after
-        hw = cfg["input_chw"][1:]
+        hw = H.image_hw(cfg)
         self.params, self.pcfg, self.pparams = weights(cfg, seed, device)
         self.wb = cfg["program"].program(cfg, self.params, device)
         self.proxy = self.pcfg["program"].program(self.pcfg, self.pparams,
@@ -133,13 +131,13 @@ class Cell(S.Cell):
     def stage_seconds_at_peak(self):
         """Seconds one map's needed FLOPs take at the H100's peak, by
         stage: the masked probes' encodes by the matcher at the scoring
-        precision, the probe's encode by the matcher (TF32 allowed), and
-        the mean-EBP prior on the proxy in float32 (two forward passes
+        precision, the probe's encode by the matcher (TF32 allowed), both
+        at the matcher's ``input_chw``, and the mean-EBP prior on the
+        proxy in float32 at the images' ``image_hw`` (two forward passes
         and the walk's input gradients down to the first convolution)."""
         cfg, tr, pcfg = self.cfg, self.tr, self.pcfg
-        chw = tuple(cfg["input_chw"])
-        enc = 2 * cfg["reference"].forward_macs(cfg, chw)
-        P = pcfg["reference"]
+        enc = 2 * cfg["reference"].forward_macs(cfg, tuple(cfg["input_chw"]))
+        P, chw = pcfg["reference"], (3,) + H.image_hw(cfg)
         full = 2 * P.forward_macs(pcfg, chw, head=True)
         conv1 = 2 * P.first_conv_macs(pcfg, chw)
         return [tr["num_masks"] * enc
@@ -149,17 +147,17 @@ class Cell(S.Cell):
 
 
 def reference_outputs(cfg, tr, seed, device, units, lower=False,
-                      flat_gates=False):
+                      **controls):
     """The reference's {unit: {"map", "cts", "prior"}} for ``units``, every
     step from the seed's images; with ``lower`` every stage computes one
-    precision lower (the control, put in the program's place), with
-    ``flat_gates`` every squeeze-excite gate is flattened over its
-    channels (the mechanism's control)."""
+    precision lower (the control, put in the program's place);
+    ``controls`` are the configuration's mechanism controls, handed to
+    its reference's encode (SENet's ``flat_gates=True`` flattens every
+    gate over its channels); one its encode lacks raises."""
     from xfr_bench.reference import strise_matcher as RM
 
     params, pcfg, pparams = weights(cfg, seed, device)
-    probes, refs, gallery, _ = scene(seed, device, tr,
-                                     cfg["input_chw"][1:])
+    probes, refs, gallery, _ = scene(seed, device, tr, H.image_hw(cfg))
     spec = {k: tr[k] for k in ("num_masks", "mask_scale", "mask_elements",
                                "blur_fill_pct")}
     out = {}
@@ -168,7 +166,7 @@ def reference_outputs(cfg, tr, seed, device, units, lower=False,
                             probes[u % len(probes)], refs, gallery,
                             H.derive(seed, "masks", u), spec,
                             score=SCORE[tr["score_precision"]], lower=lower,
-                            block=tr["chunk"], flat_gates=flat_gates)
+                            block=tr["chunk"], **controls)
         out[u] = {k: v.cpu().numpy().astype(np.float64)
                   for k, v in r.items()}
     return out

@@ -25,11 +25,13 @@ Departures from the published description, each the benchmark's:
   preprocesses the converted model's input (``preprocess``).
 - ``flat_gates`` (the mechanism's control) replaces each gate by its
   mean over the channels, so every channel of a block is scaled alike.
-- ``calibrate_gates`` scales the excitation's weights after the random
-  init (the configuration's ``assumed``): at the benchmark's plain init
-  the gate logits spread by tens across channels, so every gate sits at 0
-  or 1, a hard channel mask that float32 rounding never moves; a trained
-  gate spans most of (0, 1) (Hu et al., section 6.4).
+- ``calibrate`` (``calibrate_gates`` to the configuration's
+  ``se_logit_std``, which ``harness.weights`` calls) scales the
+  excitation's weights after the random init (the configuration's
+  ``assumed``): at the benchmark's plain init the gate logits spread by
+  tens across channels, so every gate sits at 0 or 1, a hard channel mask
+  that float32 rounding never moves; a trained gate spans most of (0, 1)
+  (Hu et al., section 6.4).
 
 It imports nothing of the measured program.
 """
@@ -144,6 +146,12 @@ def calibrate_gates(params, cfg, images_hwc, target):
         network(params, cfg, preprocess(images_hwc.float()),
                 at_gate=at_gate)
     return scales
+
+
+def calibrate(params, cfg, images_hwc):
+    """The configuration's calibration of its weights (``harness.weights``):
+    the gates at the uint8 images [N,H,W,3] to ``se_logit_std``."""
+    calibrate_gates(params, cfg, images_hwc, cfg["se_logit_std"])
 
 
 @torch.no_grad()

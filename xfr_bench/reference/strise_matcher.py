@@ -2,8 +2,9 @@
 the prior's net (stresearch/xfr ``python/xfr/models/strise.py``): the
 mean-EBP prior always comes from the ResNet-101 ``resnetv4_pytorch``
 proxy, whatever the black box; the masked probes, the references and the
-gallery are encoded by the matcher being explained, here SENet-50-256
-(``reference/senet50_256.py``).
+gallery are encoded by the configuration's matcher, its plain reference
+``cfg["reference"]`` (its ``preprocess``, which takes the images from
+``image_hw`` to the matcher's input, and its ``encode``).
 
 The prior, the mask draw, the blur fill and the scores are
 ``reference/strise.py``'s; only the matcher's encode is this file's.
@@ -14,25 +15,25 @@ from __future__ import annotations
 
 import torch
 
-from xfr_bench.reference import senet50_256 as S
 from xfr_bench.reference import strise as RS
 
 
-def _encoder(params, cfg, prec, flat_gates):
-    """Unit embeddings of [N,H,W,3] images by the matcher at a stage
-    precision: "float32" (TF32 off), "tf32" (TF32 allowed) or "bfloat16"
-    (weights and activations in bfloat16); ``flat_gates`` flattens every
-    squeeze-excite gate (the mechanism's control)."""
+def _encoder(params, cfg, prec, controls):
+    """Unit embeddings of [N,H,W,3] images by the configuration's matcher
+    at a stage precision: "float32" (TF32 off), "tf32" (TF32 allowed) or
+    "bfloat16" (weights and activations in bfloat16); ``controls`` are
+    handed to its ``encode``."""
+    R = cfg["reference"]
     if prec == "bfloat16":
         params = {n: {k: v.to(torch.bfloat16) for k, v in p.items()}
                   for n, p in params.items()}
 
     def embed(images):
         with RS.precision(prec == "tf32"):
-            x = S.preprocess(images)
+            x = R.preprocess(images)
             if prec == "bfloat16":
                 x = x.to(torch.bfloat16)
-            return RS.unit_rows(S.encode(params, cfg, x, flat_gates)
+            return RS.unit_rows(R.encode(params, cfg, x, **controls)
                                 .float())
 
     return embed
@@ -40,14 +41,17 @@ def _encoder(params, cfg, prec, flat_gates):
 
 def saliency_map(params, cfg, proxy_params, proxy_cfg, probe, refs,
                  gallery, seed, spec, score="float32", lower=False,
-                 block=64, flat_gates=False):
+                 block=64, **controls):
     """STRise's map for one probe, every step from the images, as
     ``reference/strise.py``'s ``saliency_map`` with two nets: the prior on
     the proxy (``proxy_params``, ``proxy_cfg``: ResNet-101) in float32,
     every embedding by the matcher (``params``, ``cfg``), the probe's,
     references' and gallery's with TF32 allowed, the masked probes' at
-    ``score``; with ``lower`` each stage one precision below.  Returns
-    {"prior", "cts" [N], "map" [H,W]}."""
+    ``score``; with ``lower`` each stage one precision below.
+    ``controls`` are the configuration's mechanism controls, keywords of
+    its reference's ``encode`` handed to every encode (SENet's
+    ``flat_gates`` flattens every squeeze-excite gate); one its encode
+    lacks raises.  Returns {"prior", "cts" [N], "map" [H,W]}."""
     def at(prec):
         return RS.LOWER[prec] if lower else prec
 
@@ -58,8 +62,8 @@ def saliency_map(params, cfg, proxy_params, proxy_cfg, probe, refs,
                               spec["mask_scale"], spec["mask_elements"])
         fill = RS.gaussian_blur(probe, spec["blur_fill_pct"] / 100.0
                                 * max(probe.shape))
-    embed = _encoder(params, cfg, at("tf32"), flat_gates)
-    score_embed = _encoder(params, cfg, at(score), flat_gates)
+    embed = _encoder(params, cfg, at("tf32"), controls)
+    score_embed = _encoder(params, cfg, at(score), controls)
     ref_e = embed(refs.float())
     gal_e = embed(gallery.float())
     pe = embed(probe[None])

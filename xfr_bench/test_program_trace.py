@@ -169,10 +169,12 @@ def test_small_traced_window_holds_the_program_spans(name, spans):
     assert sum(s for _, s in out["idle_gaps"]) == pytest.approx(
         out["window_s"], rel=1e-3)
     if name.endswith("eval"):
-        # 2 maps of T = 21 rows, one step of 32 rows each
+        # 2 maps of T = 21 rows, one step of 32 rows each, read back in
+        # one finish (on the CPU, not after its own launch's end)
         assert out["counters"] == {"xfr.eval.steps": 2,
                                    "xfr.eval.rows_encoded": 64,
-                                   "xfr.eval.rows_needed": 42}
+                                   "xfr.eval.rows_needed": 42,
+                                   "xfr.eval.reads": 1}
         assert out["spans"]["xfr.eval.blend"]["calls"] == 2
         assert any(n == "eval.launch/xfr.eval.encode" or
                    n == "eval.launch/xfr.eval.blend"
